@@ -1,0 +1,63 @@
+"""Generator twins of ``neuroclear_tpu/nn/generators.py``: ``ConvBlock``
+(its plain path) and ``UNetDeconv``, the production generator.
+
+``plain=True`` builds the same network on the kernels' plain PyTorch
+versions, whatever the device: the reference a run on the card is held
+against.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .core import Conv, ConvTranspose, max_pool, sigmoid
+from .norms import get_norm_spec
+
+
+class ConvBlock(nn.Module):
+    """n x (conv k3 s1 p1 -> instance norm -> ReLU), norm and ReLU fused."""
+
+    def __init__(self, in_c: int, out_c: int, n: int, norm: str = "instance",
+                 plain: bool = False):
+        super().__init__()
+        spec = get_norm_spec(norm)
+        self.n = n
+        for i in range(n):
+            self.add_module(f"conv{i}", Conv(in_c if i == 0 else out_c, out_c, 3, 1, 1,
+                                             plain=plain))
+            self.add_module(f"norm{i}", spec.layer("relu", plain=plain))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"norm{i}")(getattr(self, f"conv{i}")(x))
+        return x
+
+
+class UNetDeconv(nn.Module):
+    """2-level 3D U-Net with transposed-conv upsampling and a sigmoid head
+    (``nn/generators.py:129-207``).  Channel plan for input_nc=1: 64 -> 128
+    -> (bottom 256) -> 128 -> 64 -> 1x1x1 -> 1x1x1 -> sigmoid."""
+
+    def __init__(self, input_nc: int, output_nc: int, norm: str = "instance",
+                 plain: bool = False):
+        super().__init__()
+        s = input_nc * 64
+        self.double_conv1 = ConvBlock(input_nc, s, 2, norm, plain)
+        self.double_conv2 = ConvBlock(s, s * 2, 2, norm, plain)
+        self.bottom_layer = ConvBlock(s * 2, s * 4, 3, norm, plain)
+        self.t_conv2 = ConvTranspose(s * 4, s * 2, 2, 2)
+        self.ex_double_conv2 = ConvBlock(s * 4, s * 2, 2, norm, plain)
+        self.t_conv1 = ConvTranspose(s * 2, s, 2, 2)
+        self.ex_conv1_1 = ConvBlock(s * 2, s, 1, norm, plain)
+        self.one_by_one = Conv(s, output_nc, 1, 1, 0)
+        self.one_by_one_2 = Conv(output_nc, output_nc, 1, 1, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (N, D, H, W, input_nc), D, H and W multiples of 4."""
+        conv1 = self.double_conv1(x)
+        conv2 = self.double_conv2(max_pool(conv1, 2))
+        bottom = self.bottom_layer(max_pool(conv2, 2))
+        ex2 = self.ex_double_conv2(torch.cat([conv2, self.t_conv2(bottom)], dim=-1))
+        ex1 = self.ex_conv1_1(torch.cat([conv1, self.t_conv1(ex2)], dim=-1))
+        return sigmoid(self.one_by_one_2(self.one_by_one(ex1)))

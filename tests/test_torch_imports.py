@@ -1,0 +1,79 @@
+"""The port stands alone: ``neuroclear_tpu_torch`` (every module) and
+``chip_smoke`` import with ``jax``, ``PIL`` and ``neuroclear_tpu`` blocked, as
+on a torch-only machine with the card; and the entry point refuses to run
+when CUDA is absent and the CPU was not asked for."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKER = """
+import importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "PIL", "neuroclear_tpu")
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", _BLOCKER + textwrap.dedent(code)],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    proc = _run("""
+        import pkgutil, importlib
+        import neuroclear_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not loaded, loaded
+        print(len(names), "modules")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split()[0])
+    assert n >= 14, proc.stdout
+
+
+def test_infer_main_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal needs a machine without one")
+    missing = tmp_path / "does_not_exist.npy"
+    proc = _run(f"""
+        from neuroclear_tpu_torch import infer
+        try:
+            infer.main(["--dataroot", {str(missing)!r}, "--results_dir", {str(tmp_path)!r}])
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+            print("refused")
+        else:
+            raise SystemExit("infer.main ran without a CUDA device")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "refused"
+    assert not any(tmp_path.iterdir())  # nothing was read or written
+
+
+def test_chip_smoke_exits_nonzero_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
