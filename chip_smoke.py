@@ -6,17 +6,31 @@
 Phases, each printed with its name, seconds and result:
   1. environment: torch/CUDA versions and the card (exits nonzero without one);
   2. build: every CUDA kernel from ops/csrc with nvcc (sm_90a);
-  3. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16 at the shapes one 2 x 140^3 tile batch of the main path gives it,
-     with its time, the plain version's, one PyTorch library call's where
-     there is one, and its bound at the H100's published peaks;
-  4. slice: ``neuroclear_tpu_torch.infer.main`` on a synthetic 260^3 uint16
+  3. kernels: each inference kernel against its plain PyTorch version on the
+     card, in bf16 at the shapes one 2 x 140^3 tile batch of the inference
+     path gives it, with its time, the plain version's, one PyTorch library
+     call's where there is one, and its bound at the H100's published peaks;
+  4. kernels (training): the same for the training step's kernels at the
+     shapes one 108^3 Apollo step gives them: the conv's input gradient
+     (64 -> 64 and 64 -> 128) and weight gradient (cin 64 and 128), the
+     norm's backward sums and map and the forward map with the
+     pre-activation kept, at the generator's and the discriminators' shapes;
+  5. slice: ``neuroclear_tpu_torch.infer.main`` on a synthetic 260^3 uint16
      volume with random Kaiming UNetDeconv weights in the JAX checkpoint
      format (27 tiles of 140^3, bf16, tile_batch 2), the launch counts of
      every kernel checked, and the output held against the same pipeline on
      the plain versions on the card;
-  5. profile (only with --profile): a warm run of the slice's tile pipeline
-     under torch.profiler, device time by kernel and the device's idle share.
+  6. train: ``neuroclear_tpu_torch.train_onecube.main`` on a synthetic 160^3
+     uint16 volume at the production Apollo configuration (108^3 crops,
+     bf16, Kaiming weights from the seed): one warm-up step and five timed
+     ones, the launches of every kernel per step checked exactly; then one
+     step from identical weights, crop and draws three ways (kernels in bf16,
+     plain versions in bf16, plain versions in f32), the kernel path's
+     losses and gradients held against f32 no worse than the plain bf16
+     path's; and the written G_A checkpoint run through ``infer.main``;
+  7. profile (only with --profile): a warm run of the slice's tile pipeline
+     and a warm training step under torch.profiler, device time by kernel
+     and the device's idle share.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero before that line.  The whole run has a 600 s budget.
@@ -39,8 +53,11 @@ import torch
 import torch.nn.functional as F
 
 import neuroclear_tpu_torch.ops as kernel_ops
-from neuroclear_tpu_torch import infer
+from neuroclear_tpu_torch import infer, train_onecube
 from neuroclear_tpu_torch.data.dicing import DiceGrid
+from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
+from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
+    D_NAMES, G_NAMES, LOSS_NAMES, ApolloModel)
 from neuroclear_tpu_torch.nn.factory import define_G
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.ops import build, inorm, wconv
@@ -80,6 +97,46 @@ SLICE_MAX_EXTRA_LSB = 2 * 256
 # the mean.
 SLICE_KP_MAX_LSB = 8 * 256
 SLICE_KP_MEAN_LSB = 128
+
+# Train: the production Apollo configuration (train_onecube.py:11-18,
+# bench.py leg_train), bf16 compute with f32 master weights
+CROP = 108
+TRAIN_VOLUME = 160
+TRAIN_ITERS = 6  # one warm-up step, then five timed ones
+TRAIN_ARGS = ["--model", "axial_to_lateral_gan_apollo", "--netG", "unet_deconv",
+              "--netG_B", "deep_linear_gen", "--netD", "basic", "--gan_mode", "lsgan",
+              "--init_type", "kaiming", "--norm", "instance", "--lambda_A", "5",
+              "--lambda_plane", "1", "1", "1", "--lr_policy", "constant",
+              "--randomize_projection_depth", "--projection_depth", "10",
+              "--crop_size", str(CROP), str(CROP), str(CROP), "--precision", "bfloat16",
+              "--preprocess", "randomcrop_randomflip_addColorChannel_addBatchChannel"]
+# Launches per training step, derived from the nets: the W-pair conv serves
+# double_conv1.conv1 and ex_conv1_1.conv0 of G_A and feat1 of G_B, forward
+# and backward; every one of the 64 instance norms (G_A's 10, and 3 in each
+# of the 18 discriminator applications: 6 probes in the G loss, 12 in the D
+# loss) is differentiated.
+STEP_LAUNCHES = {"wconv3x3x3": 3, "wconv_dx": 3, "wconv_dw": 3, "pair_sums": 64,
+                 "affine_map_act": 64, "pair_sums_gy": 64, "bwd_map": 64}
+# (forward cin, launches per step): dx has cout = cin, dw the (27, 64, cin) shape
+TRAIN_CONV = [(64, 2), (128, 1)]
+# (N, R, C), launches per step, activation after the norm
+TRAIN_NORM = [((1, CROP ** 3, 64), 3, "relu"), ((1, (CROP // 2) ** 3, 128), 4, "relu"),
+              ((1, (CROP // 4) ** 3, 256), 3, "relu"), ((1, 27 ** 2, 128), 18, "leaky"),
+              ((1, 13 ** 2, 256), 18, "leaky"), ((1, 12 ** 2, 512), 18, "leaky")]
+# The kernel step against the f32 plain step, beside the plain bf16 step (same
+# weights, crop and draws): bf16 rounding of a random-weight GAN step moves
+# losses by percents and G_A's gradients by tens of percent (measured on the
+# CPU against the JAX package's own bf16 step, tests/test_torch_train_step.py),
+# and two bf16 paths that round at different places land at different such
+# distances.  Per loss: at most twice the plain path's distance plus 1% of the
+# loss.  G_A, G_B and the four discriminators pooled: relative L2 at most 1.5
+# times the plain path's plus 0.02.  Per gradient tensor, a looser tripwire:
+# three times plus 0.05.  Pre-norm biases (true gradient 0) are left out.
+STEP_LOSS_RATIO, STEP_LOSS_REL = 2.0, 1e-2
+STEP_GRAD_RATIO, STEP_GRAD_ABS = 1.5, 0.02
+STEP_TENSOR_RATIO, STEP_TENSOR_ABS = 3.0, 0.05
+PRE_NORM = ("double_conv", "bottom_layer", "ex_double_conv2", "ex_conv1_1", "conv1",
+            "conv2", "conv3")
 
 T_START = time.monotonic()
 
@@ -236,10 +293,141 @@ def check_norm(gen, dev) -> tuple[dict, dict]:
     return sums, amap
 
 
-def synthetic_volume(seed: int) -> np.ndarray:
+def _tot(library=True) -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if library else None, "tb": 0.0,
+            "to": 0.0, "err": 0.0}
+
+
+def _add(tot: dict, mult: int, err: float, **vals) -> None:
+    for key, v in vals.items():
+        if v is not None:
+            tot[key] += mult * v
+    tot["err"] = max(tot["err"], err)
+
+
+def check_train_conv(gen, dev) -> tuple[dict, dict]:
+    """The conv's input and weight gradients at one 108^3 training step's
+    shapes, against their plain versions and cuDNN's f32 gradients."""
+    dx_tot, dw_tot = _tot(), _tot()
+    m = CROP ** 3
+    for cin, mult in TRAIN_CONV:
+        shape = (1, CROP, CROP, CROP)
+        x = torch.randn(shape + (cin,), generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(shape + (64,), generator=gen, device=dev).to(torch.bfloat16)
+        wgt = (torch.randn((64, cin, 3, 3, 3), generator=gen, device=dev)
+               * math.sqrt(2.0 / (27 * cin))).to(torch.bfloat16)
+        wt = wconv.pack_weight(wgt)
+        x_cl, g_cl = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+
+        dx = wconv.conv3d_dx(g, wt)
+        torch.cuda.synchronize()
+        p = wconv.conv3d_dx_plain(g, wt).float()
+        tol = 2.0 ** -7 * p.abs() + 2.0 ** -12 * p.abs().max()
+        err_dx = (dx.float() - p).abs().max().item()
+        if not bool(((dx.float() - p).abs() <= tol).all()):
+            raise AssertionError(f"wconv dx cin {cin}: max error {err_dx} over one bf16 step")
+        ref32 = torch.nn.grad.conv3d_input(x_cl.shape, wgt.float(), g_cl.float(), padding=1)
+        if not bool(((dx.float() - ref32.permute(0, 2, 3, 4, 1)).abs() <= tol).all()):
+            raise AssertionError(f"wconv dx cin {cin}: off cuDNN's f32 input gradient")
+        del p, tol, ref32
+        ms = cuda_ms(lambda: wconv.conv3d_dx(g, wt), 5)
+        plain = cuda_ms(lambda: wconv.conv3d_dx_plain(g, wt), 1)
+        lib = cuda_ms(lambda: torch.nn.grad.conv3d_input(x_cl.shape, wgt, g_cl, padding=1), 5)
+        flops = 2.0 * m * 64 * 27 * cin
+        tb, to = bound_ms(m * 64 * 2 + 27 * cin * 64 * 2 + m * cin * 2, flops, PEAK_BF16_FLOPS)
+        log(f"  wconv dx (1,{CROP}^3,64)->{cin}: max_abs_err {err_dx:.4g}  kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain:.3f} ms  conv3d_input {lib:.3f} ms  "
+            f"bound {max(tb, to):.3f} ms")
+        _add(dx_tot, mult, err_dx, ms=ms, plain_ms=plain, library_ms=lib, tb=tb, to=to)
+        del dx
+
+        dw = wconv.conv3d_dw(x, g)
+        torch.cuda.synchronize()
+        p = wconv.conv3d_dw_plain(x, g)
+        mag = wconv.conv3d_dw_plain(x.abs(), g.abs())
+        err_dw = (dw - p).abs().max().item()
+        # f32 sums of the same bf16 products over 1.26 M voxels in another order
+        if not bool(((dw - p).abs() <= 1e-4 * mag).all()):
+            raise AssertionError(f"wconv dw cin {cin}: max error {err_dw} over 1e-4 of the "
+                                 "sum of magnitudes")
+        ref32 = torch.nn.grad.conv3d_weight(x_cl.float(), wgt.shape, g_cl.float(), padding=1)
+        if not bool(((dw - wconv.pack_weight(ref32)).abs() <= 1e-4 * mag).all()):
+            raise AssertionError(f"wconv dw cin {cin}: off cuDNN's f32 weight gradient")
+        del p, mag, ref32
+        ms = cuda_ms(lambda: wconv.conv3d_dw(x, g), 5)
+        plain = cuda_ms(lambda: wconv.conv3d_dw_plain(x, g), 1)
+        lib = cuda_ms(lambda: torch.nn.grad.conv3d_weight(x_cl, wgt.shape, g_cl, padding=1), 5)
+        tb, to = bound_ms(m * cin * 2 + m * 64 * 2 + 27 * cin * 64 * 4, flops, PEAK_BF16_FLOPS)
+        log(f"  wconv dw (1,{CROP}^3,{cin}) x (1,{CROP}^3,64): max_abs_err {err_dw:.4g} (of "
+            f"|dw| up to {dw.abs().max().item():.4g})  kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain:.3f} ms  conv3d_weight {lib:.3f} ms  "
+            f"bound {max(tb, to):.3f} ms")
+        _add(dw_tot, mult, err_dw, ms=ms, plain_ms=plain, library_ms=lib, tb=tb, to=to)
+        # and the forward at this step's shapes (its row keeps the inference batch)
+        bias = torch.zeros(64, device=dev)
+        fwd = cuda_ms(lambda: wconv.conv3d(x, wt, bias), 5)
+        log(f"  wconv forward (1,{CROP}^3,{cin})->64: kernel {fwd:.3f} ms")
+        del x, g, x_cl, g_cl, dw
+        torch.cuda.empty_cache()
+    return dx_tot, dw_tot
+
+
+def check_train_norm(gen, dev) -> tuple[dict, dict]:
+    """The norm's backward sums and map, and the forward map keeping the
+    pre-activation, at one 108^3 training step's shapes."""
+    sums, bmap = _tot(), _tot(library=False)
+    for shape, mult, act in TRAIN_NORM:
+        n, r, c = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        sc, sh = inorm.norm_coefficients(inorm.pair_sums(x), r)
+        pre, a = inorm.affine_map_act(x, sc, sh, act, keep_pre=True)
+        pre_p, a_p = inorm.affine_map_act_plain(x, sc, sh, act, keep_pre=True)
+        if not (within_bf16_ulp(pre, pre_p) and within_bf16_ulp(a, a_p)):
+            raise AssertionError(f"affine_map_act keep_pre {act} {shape}: off its plain version")
+        s = inorm.pair_sums_gy(g, pre, act)
+        sp = inorm.pair_sums_gy_plain(g, pre, act)
+        gd = inorm.act_grad_plain(g.double(), pre.double(), act)
+        ref = torch.stack([gd.sum(1), (gd * pre.double()).sum(1)], 1)
+        mag = torch.stack([gd.abs().sum(1), (gd * pre.double()).abs().sum(1)], 1)
+        del gd
+        for name, got in (("kernel", s), ("plain", sp)):
+            if not bool(((got.double() - ref).abs() <= 1e-5 * mag).all()):
+                raise AssertionError(f"pair_sums_gy {name} {shape}: off the f64 sums")
+        err_s = (s - sp).abs().max().item()
+        mg, mgy = (s[:, 0] / r).contiguous(), (s[:, 1] / r).contiguous()
+        dx = inorm.bwd_map(g, pre, sc, mg, mgy, act)
+        dxp = inorm.bwd_map_plain(g, pre, sc, mg, mgy, act)
+        if not within_bf16_ulp(dx, dxp):
+            raise AssertionError(f"bwd_map {act} {shape}: more than one bf16 step off")
+        err_m = (dx.float() - dxp.float()).abs().max().item()
+        ms_s = cuda_ms(lambda: inorm.pair_sums_gy(g, pre, act), 10)
+        pl_s = cuda_ms(lambda: inorm.pair_sums_gy_plain(g, pre, act), 3)
+        lib_s = cuda_ms(lambda: (g.float() * pre.float()).sum(1), 10)
+        ms_m = cuda_ms(lambda: inorm.bwd_map(g, pre, sc, mg, mgy, act), 10)
+        pl_m = cuda_ms(lambda: inorm.bwd_map_plain(g, pre, sc, mg, mgy, act), 3)
+        ms_a = cuda_ms(lambda: inorm.affine_map_act(x, sc, sh, act, keep_pre=True), 10)
+        elems = n * r * c
+        tb_s, to_s = bound_ms(2 * elems * 2 + n * 2 * c * 4, 4.0 * elems, PEAK_F32_FLOPS)
+        tb_m, to_m = bound_ms(3 * elems * 2 + 3 * n * c * 4, 5.0 * elems, PEAK_F32_FLOPS)
+        tb_a, _ = bound_ms(3 * elems * 2 + 2 * n * c * 4, 3.0 * elems, PEAK_F32_FLOPS)
+        log(f"  pair_sums_gy {act} {shape}: max_abs_err {err_s:.4g} (kernel vs plain f32 sums)  "
+            f"kernel {ms_s:.4f} ms  plain {pl_s:.4f} ms  (g*y).sum {lib_s:.4f} ms  bound "
+            f"{max(tb_s, to_s):.4f} ms")
+        log(f"  bwd_map {act} {shape}: max_abs_err {err_m:.4g}  kernel {ms_m:.4f} ms  plain "
+            f"{pl_m:.4f} ms  bound {max(tb_m, to_m):.4f} ms")
+        log(f"  affine_map_act {act} keep_pre {shape}: kernel {ms_a:.4f} ms  bound {tb_a:.4f} ms")
+        _add(sums, mult, err_s, ms=ms_s, plain_ms=pl_s, library_ms=lib_s, tb=tb_s, to=to_s)
+        _add(bmap, mult, err_m, ms=ms_m, plain_ms=pl_m, tb=tb_m, to=to_m)
+        del x, g, pre, a, pre_p, a_p, dx, dxp
+        torch.cuda.empty_cache()
+    return sums, bmap
+
+
+def synthetic_volume(seed: int, size: int = VOLUME) -> np.ndarray:
     """A smooth random field with noise, uint16, from the seed."""
     rng = np.random.default_rng(seed)
-    ax = np.arange(VOLUME, dtype=np.float32)
+    ax = np.arange(size, dtype=np.float32)
     ph = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
     field = (np.sin(ax / 9.0 + ph[0])[:, None, None] * np.cos(ax / 13.0 + ph[1])[None, :, None]
              * np.sin(ax / 7.0 + ph[2])[None, None, :])
@@ -259,8 +447,9 @@ def run_slice(seed: int, dev, tmp: str) -> dict:
     grid = DiceGrid(pad_for_dicing(vol, roi, overlap).shape, roi, overlap, 10)
     per_slab = -(-(grid.y_steps * grid.x_steps) // 2)
     batches = grid.z_steps * per_slab
-    expected = {"wconv3x3x3": 2 * batches, "pair_sums": 10 * batches,
-                "affine_map_act": 10 * batches}
+    expected = {name: 0 for name in kernel_ops.KERNELS}  # no backward kernel runs
+    expected.update({"wconv3x3x3": 2 * batches, "pair_sums": 10 * batches,
+                     "affine_map_act": 10 * batches})
     log(f"  {len(grid)} tiles of {roi + 20}^3 in {batches} batches of <= 2")
 
     kernel_ops.reset_launches()
@@ -322,6 +511,125 @@ def run_slice(seed: int, dev, tmp: str) -> dict:
     return {"launches": launches, "k_err": k_err, "seconds": res["seconds"]}
 
 
+def _grads_by_name(model, g_grads, d_grads) -> dict:
+    """{NET.param: f32 gradient} in the order of the model's parameters."""
+    names = [f"{n}.{pn}" for n in G_NAMES + D_NAMES for pn, _ in model.nets[n].named_parameters()]
+    return {k: g.detach().float() for k, g in zip(names, list(g_grads) + list(d_grads))}
+
+
+def _is_pre_norm_bias(key: str) -> bool:
+    parts = key.split(".")
+    return parts[-1] == "bias" and any(q.startswith(PRE_NORM) for q in parts[1:-1])
+
+
+def _rel_l2(a: dict, b: dict, keys) -> float:
+    num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in keys)
+    return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in keys))
+
+
+def check_step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
+    """One step from identical weights, crop and draws: the kernels in bf16,
+    the plain versions in bf16 and in f32; the kernel path's losses and
+    gradients against f32 no worse than the plain bf16 path's."""
+    opt = train_onecube.build_parser().parse_args(["--dataroot", "unused", *TRAIN_ARGS])
+    dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    real = dataset.sample(gen)
+    draws, runs = None, {}
+    for label, plain, precision in (("kernels bf16", False, "bfloat16"),
+                                    ("plain bf16", True, "bfloat16"),
+                                    ("plain f32", True, "float32")):
+        opt.precision = precision
+        model = ApolloModel(opt, dev, plain=plain)
+        model.init_weights(seed)
+        if draws is None:
+            draws = model.draw_probes((CROP,) * 3, gen)
+        before = kernel_ops.launches()
+        losses, _, _, g_grads, d_grads = model.gradients(real, draws)
+        torch.cuda.synchronize()
+        if plain and kernel_ops.launches() != before:
+            raise AssertionError(f"the {label} step launched a kernel")
+        runs[label] = ({k: float(v) for k, v in losses.items()},
+                       _grads_by_name(model, g_grads, d_grads))
+        del model, g_grads, d_grads
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp), (lf, gf) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
+    bad = []
+    for name in LOSS_NAMES:
+        ek, ep = abs(lk[name] - lf[name]), abs(lp[name] - lf[name])
+        if ek > STEP_LOSS_RATIO * ep + STEP_LOSS_REL * abs(lf[name]):
+            bad.append(f"loss {name}: {ek:.4g} vs plain {ep:.4g}")
+    keys = [k for k in gf if not _is_pre_norm_bias(k)]
+    pooled = {}
+    for group, nets in (("G_A", ["G_A"]), ("G_B", ["G_B"]), ("D", D_NAMES)):
+        ks = [k for k in keys if k.split(".")[0] in nets]
+        ek, ep = _rel_l2(gk, gf, ks), _rel_l2(gp, gf, ks)
+        pooled[group] = (ek, ep)
+        if ek > STEP_GRAD_RATIO * ep + STEP_GRAD_ABS:
+            bad.append(f"gradients {group}: {ek:.4g} vs plain {ep:.4g}")
+    worst = (0.0, "")
+    for k in keys:
+        ek, ep = _rel_l2(gk, gf, [k]), _rel_l2(gp, gf, [k])
+        worst = max(worst, (ek - ep, k))
+        if ek > STEP_TENSOR_RATIO * ep + STEP_TENSOR_ABS:
+            bad.append(f"gradient {k}: {ek:.4g} vs plain {ep:.4g}")
+    log("  step at 108^3, relative error against the plain f32 step (kernels bf16 / plain "
+        "bf16): " + "; ".join(f"{g} gradients {ek:.4g} / {ep:.4g}" for g, (ek, ep) in pooled.items()))
+    log("  losses (f32 | kernels bf16 | plain bf16): " + "; ".join(
+        f"{n} {lf[n]:.5g} | {lk[n]:.5g} | {lp[n]:.5g}" for n in LOSS_NAMES))
+    log(f"  largest excess of a kernel-path tensor error over the plain one: {worst[0]:.4g} "
+        f"({worst[1]})")
+    if bad:
+        raise AssertionError("kernel step less accurate than the plain bf16 step: "
+                             + "; ".join(bad))
+    return pooled
+
+
+def run_train(seed: int, dev, tmp: str) -> dict:
+    """The trainer at the production configuration, its launch counts, the
+    three-way step check and its checkpoint through inference."""
+    vol = synthetic_volume(seed, TRAIN_VOLUME)
+    data = os.path.join(tmp, "train_data")
+    os.makedirs(data)
+    np.save(os.path.join(data, "volume.npy"), vol)
+    ckpt = os.path.join(tmp, "train_ckpt")
+    kernel_ops.reset_launches()
+    res = train_onecube.main(["--dataroot", data, "--name", "smoke", "--checkpoints_dir", ckpt,
+                              "--max_iters", str(TRAIN_ITERS), "--save_latest_freq",
+                              str(TRAIN_ITERS), "--save_by_iter", "--print_freq", "1",
+                              "--seed", str(seed), *TRAIN_ARGS])
+    launches = kernel_ops.launches()
+    expected = {k: TRAIN_ITERS * v for k, v in STEP_LAUNCHES.items()}
+    log(f"  launches over {TRAIN_ITERS} steps {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    for step in res["losses"]:
+        if not all(math.isfinite(v) for v in step.values()):
+            raise AssertionError(f"a loss is not finite: {step}")
+    timed = sorted(res["step_seconds"][1:])
+    step_ms = 1e3 * timed[len(timed) // 2]
+    log(f"  step ms: first {1e3 * res['step_seconds'][0]:.1f}, then "
+        + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"][1:])
+        + f"; median {step_ms:.1f} ms ({CROP}^3, bf16)")
+    log("  last losses: " + ", ".join(f"{k} {v:.5g}" for k, v in res["losses"][-1].items()))
+
+    pooled = check_step_three_ways(seed, vol, dev)
+
+    small = os.path.join(tmp, "infer_data")
+    os.makedirs(small)
+    np.save(os.path.join(small, "volume.npy"), synthetic_volume(seed + 2, 72))
+    out = infer.main(["--dataroot", small, "--name", "smoke", "--checkpoints_dir", ckpt,
+                      "--load_iter", str(TRAIN_ITERS), "--model_suffix", "_A",
+                      "--dice_size", "48", "48", "48", "--overlap", "8", "--border_cut", "4",
+                      "--precision", "bfloat16", "--results_dir", os.path.join(tmp, "train_out")])
+    vol_out = np.load(out["output"])
+    if vol_out.shape != (72, 72, 72) or vol_out.dtype != np.uint16 or vol_out.std() == 0:
+        raise AssertionError(f"trained G_A output {vol_out.shape} {vol_out.dtype} "
+                             f"std {vol_out.std()}")
+    return {"launches": launches, "step_ms": step_ms, "losses": res["losses"][-1],
+            "pooled": pooled}
+
+
 def profile_pipeline(dev, seed: int) -> None:
     """Where the time of the slice goes: a warm run of the tile pipeline
     timed on the host clock, then the same run under torch.profiler, device
@@ -342,13 +650,55 @@ def profile_pipeline(dev, seed: int) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         pipe.run_streaming(vp)
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    rows = _device_rows(prof)
     busy = sum(r[1] for r in rows)
     log(f"  warm pipeline wall {wall:.1f} ms; device time {busy:.1f} ms "
         f"(idle share {max(0.0, 1 - busy / wall):.3f})")
     for key, ms, count in rows[:16]:
+        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def _device_rows(prof):
+    """(name, device ms, count) of each kernel, most time first.  Annotated
+    ranges (torch.optim's Optimizer.step#Adam.step) span kernels that have
+    rows of their own, and are left out."""
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def profile_train_step(dev, seed: int) -> None:
+    """Where the time of a 108^3 training step goes: a warm step timed on
+    the host clock, then one under torch.profiler, device time by kernel."""
+    opt = train_onecube.build_parser().parse_args(["--dataroot", "unused", *TRAIN_ARGS])
+    dataset = SingleVolumeDataset(synthetic_volume(seed, TRAIN_VOLUME), (CROP,) * 3,
+                                  opt.preprocess, dev)
+    model = ApolloModel(opt, dev)
+    model.init_weights(seed)
+    gen = torch.Generator().manual_seed(seed)
+
+    def step():
+        model.optimize_parameters(dataset.sample(gen), model.draw_probes((CROP,) * 3, gen))
+        torch.cuda.synchronize()
+
+    step()
+    step()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    log(f"  warm training step wall {wall:.1f} ms; device time {busy:.1f} ms "
+        f"(idle share {max(0.0, 1 - busy / wall):.3f}); {sum(r[2] for r in rows)} device "
+        f"operations; peak device memory {peak_gib:.2f} GiB")
+    for key, ms, count in rows[:24]:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
 
 
@@ -362,7 +712,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a warm run of the slice's tile pipeline")
+                    help="also profile a warm run of the slice's tile pipeline and a warm "
+                         "training step")
     args = ap.parse_args(argv)
     faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)  # a hang ends the run
 
@@ -391,25 +742,45 @@ def main(argv=None) -> int:
         sums, amap = check_norm(gen, dev)
         ph.result = "all kernels within tolerance of their plain versions"
 
+    with Phase("kernels (training)") as ph:
+        dx, dw = check_train_conv(gen, dev)
+        sums_gy, bmap = check_train_norm(gen, dev)
+        ph.result = "all training kernels within tolerance of their plain versions"
+
     with Phase("slice") as ph, tempfile.TemporaryDirectory() as tmp:
         sl = run_slice(args.seed, dev, tmp)
         ph.result = (f"{VOLUME}^3 uint16 in {sl['seconds']:.3f} s, error against the f32 "
                      f"plain output {sl['k_err']}")
 
+    with Phase("train") as ph, tempfile.TemporaryDirectory() as tmp:
+        tr = run_train(args.seed, dev, tmp)
+        ph.result = (f"{CROP}^3 Apollo step {tr['step_ms']:.1f} ms (median of "
+                     f"{TRAIN_ITERS - 1}), gradient error against f32 (kernels / plain bf16) "
+                     f"{tr['pooled']}")
+
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
+            profile_train_step(dev, args.seed)
 
+    # Times: the inference kernels' rows sum one 2 x 140^3 tile batch's
+    # launches, the training kernels' rows one 108^3 step's; launches are
+    # the counts of the slice's run plus the trainer's run.
     rows = []
+    csrc = "neuroclear_tpu_torch/ops/csrc/"
     for name, src, replaces, tot in (
-            ("wconv3x3x3", "neuroclear_tpu_torch/ops/csrc/wconv.cu",
-             "neuroclear_tpu/ops/pallas_wconv.py:124", conv),
-            ("pair_sums", "neuroclear_tpu_torch/ops/csrc/inorm.cu",
-             "neuroclear_tpu/ops/pallas_ops.py:69", sums),
-            ("affine_map_act", "neuroclear_tpu_torch/ops/csrc/inorm.cu",
-             "neuroclear_tpu/ops/pallas_ops.py:111", amap)):
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": sl["launches"][name], "max_abs_err": tot["err"],
+            ("wconv3x3x3", "wconv.cu", "pallas_wconv.py:124", conv),
+            ("wconv_dx", "wconv.cu", "pallas_wconv.py:387", dx),
+            ("wconv_dw", "wconv_dw.cu", "pallas_wconv.py:231", dw),
+            ("pair_sums", "inorm.cu", "pallas_ops.py:69", sums),
+            ("affine_map_act", "inorm.cu", "pallas_ops.py:111", amap),
+            ("pair_sums_gy", "inorm.cu", "pallas_ops.py:69", sums_gy),
+            ("bwd_map", "inorm.cu", "pallas_ops.py:143", bmap)):
+        by_path = {"infer": sl["launches"][name], "train": tr["launches"][name]}
+        rows.append({"name": name, "route": "cuda", "source": csrc + src,
+                     "replaces": "neuroclear_tpu/ops/" + replaces,
+                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                     "max_abs_err": tot["err"],
                      "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                      "bound_ms": max(tot["tb"], tot["to"]),
                      "bound_by": "operations" if tot["to"] > tot["tb"] else "bytes",

@@ -1,5 +1,7 @@
 """Generator twins of ``neuroclear_tpu/nn/generators.py``: ``ConvBlock``
-(its plain path) and ``UNetDeconv``, the production generator.
+(its plain path), ``UNetDeconv``, the production generator, and
+``DeepLinearGenerator``, the production backward generator of the Apollo
+cycle.
 
 ``plain=True`` builds the same network on the kernels' plain PyTorch
 versions, whatever the device: the reference a run on the card is held
@@ -61,3 +63,27 @@ class UNetDeconv(nn.Module):
         ex2 = self.ex_double_conv2(torch.cat([conv2, self.t_conv2(bottom)], dim=-1))
         ex1 = self.ex_conv1_1(torch.cat([conv1, self.t_conv1(ex2)], dim=-1))
         return sigmoid(self.one_by_one_2(self.one_by_one(ex1)))
+
+
+class DeepLinearGenerator(nn.Module):
+    """KernelGAN-style purely linear 3D conv stack, no activations, no bias
+    (``nn/generators.py:270-302``): k7 (p3) -> k5 (p2) -> k3 (p1) at 64
+    channels, then 1x1x1 64 -> 32 -> 16 -> output_nc.  In bf16 ``feat1``
+    (3x3x3, 64 -> 64) passes the W-pair gate and runs the hand kernel with a
+    zero bias."""
+
+    def __init__(self, input_nc: int, output_nc: int, plain: bool = False):
+        super().__init__()
+        c = input_nc * 64
+        for name, (cin, cout, k, pad) in (("first_layer", (input_nc, c, 7, 3)),
+                                          ("feat0", (c, c, 5, 2)),
+                                          ("feat1", (c, c, 3, 1)),
+                                          ("feat2", (c, c // 2, 1, 0)),
+                                          ("feat3", (c // 2, c // 4, 1, 0)),
+                                          ("final_layer", (c // 4, output_nc, 1, 0))):
+            self.add_module(name, Conv(cin, cout, k, 1, pad, bias=False, plain=plain))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.children():
+            x = layer(x)
+        return x

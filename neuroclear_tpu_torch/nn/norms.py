@@ -11,14 +11,15 @@ from .core import InstanceNorm
 @dataclasses.dataclass(frozen=True)
 class NormSpec:
     kind: str  # 'instance'
+    dim: int = 3
 
     def layer(self, act=None, plain: bool = False) -> InstanceNorm:
         """The norm followed by ``act``, fused."""
         return InstanceNorm(act, plain=plain)
 
 
-def get_norm_spec(norm_type: str = "instance") -> NormSpec:
+def get_norm_spec(norm_type: str = "instance", dim: int = 3) -> NormSpec:
     if norm_type == "instance":
-        return NormSpec("instance")
+        return NormSpec("instance", dim)
     raise NotImplementedError(f"normalization layer [{norm_type}] is not ported yet "
                               "(ROADMAP.md, queue 1)")

@@ -40,13 +40,19 @@ c_ptr, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "wconv": {
         "nc_wconv3x3x3_bf16": ([c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int,
-                                c_int, c_int, c_ptr], c_int),
+                                c_int, c_int, c_int, c_ptr], c_int),
+    },
+    "wconv_dw": {
+        "nc_wconv_dw_bf16": ([c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
+                              c_int, c_int, c_ptr], c_int),
     },
     "inorm": {
-        "nc_pair_sums": ([c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int, c_int, c_int,
-                          c_ptr], c_int),
-        "nc_affine_map_act": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int,
+        "nc_pair_sums": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int, c_int, c_int,
+                          c_int, c_ptr], c_int),
+        "nc_affine_map_act": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int,
                                c_int, c_int, c_ptr], c_int),
+        "nc_bwd_map": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int,
+                        c_int, c_int, c_ptr], c_int),
     },
 }
 

@@ -1,20 +1,27 @@
-// 3x3x3, stride-1, SAME convolution with 64 output channels, NDHWC, bf16 in,
-// f32 accumulation, bias fused, bf16 out.
+// 3x3x3, stride-1, SAME convolution with 64 or 128 output channels, NDHWC,
+// bf16 in, f32 accumulation, bias fused (optional), bf16 out.
 //
 // Replaces neuroclear_tpu/ops/pallas_wconv.py::_kernel (launched by
-// _conv_pallas).  The TPU kernel folds W pairs into the 128 lanes so its
-// matrix unit sees K = 2*cin, N = 128; that packing is a TPU lane device and
-// is not carried over.  Here the conv is an implicit GEMM:
+// _conv_pallas), in both of its uses: the forward conv (cout 64) and the
+// input gradient of its custom VJP (_bwd), which is the same conv of the
+// 64-channel cotangent with the flipped, in/out-transposed kernel, so its
+// cout is the forward's cin (64 or 128) and it carries no bias.  The TPU
+// kernel folds W pairs into the 128 lanes so its matrix unit sees
+// K = 2*cin, N = 128; that packing is a TPU lane device and is not carried
+// over.  Here the conv is an implicit GEMM:
 //   out[m, n] = bias[n] + sum_{tap, c} x[m + shift(tap), c] * wt[tap, n, c]
-// with M = B*D*H*W output voxels, N = 64, K = 27*cin, taps outside the
-// volume read as zero.
+// with M = B*D*H*W output voxels, N = cout, K = 27*cin, taps outside the
+// volume read as zero.  cout is covered in groups of 64 channels, one per
+// blockIdx.y, so a 128-channel output is one launch whose two block rows
+// read the same input tile (the second read mostly from L2).
 //
-// Bound on the H100: at the path's shapes (2 x 140^3 voxels, cin 64 or 128)
-// the product is 1.2-2.4 TFLOP against ~1.4-2.1 GB of traffic, ~850
-// FLOP/byte, so the tensor cores bound it, not memory.  The design keeps the
+// Bound on the H100: at the path's shapes (2 x 140^3 voxels for inference,
+// 108^3 for training; cin 64 or 128) the product is 0.28-2.4 TFLOP against
+// ~0.3-2.1 GB of traffic, ~850 FLOP/byte, so the tensor cores bound it, not
+// memory.  The design keeps the
 // operands on-chip and the tensor cores fed:
-//   * a block owns BM = 128 consecutive output voxels and all 64 output
-//     channels; its K loop walks (tap, 32-channel chunk) stages;
+//   * a block owns BM = 128 consecutive output voxels and one group of 64
+//     output channels; its K loop walks (tap, 32-channel chunk) stages;
 //   * each stage's A tile (128 voxel rows x 32 channels, one 16-byte
 //     cp.async per thread and row segment, zero-filled where the tap leaves
 //     the volume) and B tile (64 x 32 weights) land in shared memory through
@@ -32,7 +39,7 @@
 namespace {
 
 constexpr int BM = 128;       // output voxels per block
-constexpr int BN = 64;        // output channels per block (all of them)
+constexpr int BN = 64;        // output channels per block (one group)
 constexpr int BK = 32;        // input channels of one tap per stage
 constexpr int LDS = BK + 8;   // padded shared-memory row, in elements
 constexpr int STAGES = 3;
@@ -67,12 +74,13 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// x: (B, D, H, W, cin) bf16; wt: (27, 64, cin) bf16, tap-major, channel
-// contiguous; bias: (64,) f32; y: (B, D, H, W, 64) bf16.
+// x: (B, D, H, W, cin) bf16; wt: (27, cout, cin) bf16, tap-major, channel
+// contiguous; bias: (cout,) f32 or null; y: (B, D, H, W, cout) bf16.
+// blockIdx.y picks the output channels [64 * blockIdx.y, 64 * blockIdx.y + 64).
 __global__ void __launch_bounds__(THREADS)
 wconv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
              const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int D, int H,
-             int W, int cin, long long M) {
+             int W, int cin, int cout, long long M) {
   __shared__ __align__(16) __nv_bfloat16 As[STAGES][BM * LDS];
   __shared__ __align__(16) __nv_bfloat16 Bs[STAGES][BN * LDS];
 
@@ -82,6 +90,7 @@ wconv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
   const int group = lane >> 2;  // fragment row (A, C) or column (B)
   const int tig = lane & 3;     // thread in group
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const int n0 = blockIdx.y * BN;  // first output channel of this block
 
   // Each thread copies one 16-byte segment (8 channels) of four A rows and
   // two B rows per stage; the rows stay fixed across stages, so their
@@ -123,7 +132,7 @@ wconv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int n = (tid >> 2) + 32 * j;
-      const __nv_bfloat16* src = wt + (static_cast<long long>(tap) * BN + n) * cin + c0;
+      const __nv_bfloat16* src = wt + (static_cast<long long>(tap) * cout + n0 + n) * cin + c0;
       cp_async16(&Bs[stage][n * LDS + seg * 8], src, true);
     }
   };
@@ -179,7 +188,7 @@ wconv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
 #pragma unroll
   for (int ni = 0; ni < 8; ++ni) {
     const int col = ni * 8 + tig * 2;
-    const float b0 = bias[col], b1 = bias[col + 1];
+    const float b0 = bias ? bias[n0 + col] : 0.f, b1 = bias ? bias[n0 + col + 1] : 0.f;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -188,7 +197,7 @@ wconv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
         if (m < M) {
           const __nv_bfloat162 v =
               __floats2bfloat162_rn(acc[mi][ni][2 * h] + b0, acc[mi][ni][2 * h + 1] + b1);
-          *reinterpret_cast<__nv_bfloat162*>(y + m * BN + col) = v;
+          *reinterpret_cast<__nv_bfloat162*>(y + m * cout + n0 + col) = v;
         }
       }
     }
@@ -197,16 +206,20 @@ wconv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
 
 }  // namespace
 
+// bias may be null (the input gradient carries none).
 extern "C" int nc_wconv3x3x3_bf16(const void* x, const void* wt, const void* bias, void* y,
-                                  int batch, int D, int H, int W, int cin, void* stream) {
-  if (cin <= 0 || cin % BK != 0 || batch <= 0 || D <= 0 || H <= 0 || W <= 0)
+                                  int batch, int D, int H, int W, int cin, int cout,
+                                  void* stream) {
+  if (cin <= 0 || cin % BK != 0 || cout <= 0 || cout % BN != 0 || cout / BN > 65535 ||
+      batch <= 0 || D <= 0 || H <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long M = static_cast<long long>(batch) * D * H * W;
   const long long blocks = (M + BM - 1) / BM;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  wconv_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(cout / BN));
+  wconv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), D, H, W, cin, M);
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), D, H, W, cin, cout, M);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,8 +2,9 @@
 
 The JAX package checkpoints a network as a flat ``.npz`` of
 ``{module path}.w`` / ``{module path}.b`` arrays (``nn/core.py:287-307``,
-written by ``models/base_model.py:241``), conv kernels in (k, k, k, I, O)
-order.  The port's modules keep the same paths and PyTorch's layouts.
+written by ``models/base_model.py:241``), conv kernels in (k..., I, O)
+order.  The port's modules keep the same paths and PyTorch's layouts;
+``params_from_numpy`` reads that format and ``flat_from_module`` writes it.
 """
 
 from __future__ import annotations
@@ -35,20 +36,35 @@ def params_from_numpy(flat: dict, net: nn.Module) -> dict:
         if not isinstance(layer, _LAYERS) or leaf not in ("w", "b"):
             raise KeyError(f"checkpoint key {key!r} has no counterpart in {type(net).__name__}")
         if leaf == "w":
-            state[f"{prefix}.weight"] = layer.weight_from_jax(np.asarray(arr, np.float32))
+            state[f"{prefix}.weight"] = layer.weight_from_jax(np.array(arr, np.float32))
         else:
-            state[f"{prefix}.bias"] = torch.as_tensor(np.asarray(arr, np.float32))
+            state[f"{prefix}.bias"] = torch.as_tensor(np.array(arr, np.float32))
     missing = set(net.state_dict()) - set(state)
     if missing:
         raise KeyError(f"checkpoint lacks {sorted(missing)}")
     return state
 
 
+def flat_from_module(net: nn.Module) -> dict:
+    """``net``'s parameters in the JAX flat format: {key: f32 numpy array},
+    conv kernels as (k..., I, O)."""
+    flat = {}
+    for name, layer in net.named_modules():
+        if not isinstance(layer, _LAYERS):
+            continue
+        w = layer.weight_to_jax(layer.weight.detach())
+        flat[f"{name}.w"] = w.to("cpu", torch.float32).contiguous().numpy()
+        if layer.bias is not None:
+            flat[f"{name}.b"] = layer.bias.detach().to("cpu", torch.float32).numpy()
+    return flat
+
+
 def kaiming_flat(net: nn.Module, seed: int) -> dict:
     """Random weights for ``net`` in the JAX flat format, as the JAX
     package's ``init_weight(..., 'kaiming')`` draws them: N(0, 2 / fan_in)
-    with torch's fan rule (fan_in = I*k^3 for a conv, O*k^3 for a transposed
-    conv), zero biases.  Drawn from numpy, so both packages can load them."""
+    with torch's fan rule (fan_in = I*k^dim for a conv, O*k^dim for a
+    transposed conv), zero biases.  Drawn from numpy, so both packages can
+    load them."""
     rng = np.random.default_rng(seed)
     flat = {}
     for name, layer in net.named_modules():
@@ -59,10 +75,10 @@ def kaiming_flat(net: nn.Module, seed: int) -> dict:
             o, i = w.shape[:2]
         else:
             i, o = w.shape[:2]
-        k = w.shape[2]
-        fan_in = (o if isinstance(layer, ConvTranspose) else i) * k ** 3
+        ks = tuple(w.shape[2:])
+        fan_in = (o if isinstance(layer, ConvTranspose) else i) * math.prod(ks)
         std = math.sqrt(2.0 / fan_in)
-        flat[f"{name}.w"] = (rng.standard_normal((k, k, k, i, o)) * std).astype(np.float32)
+        flat[f"{name}.w"] = (rng.standard_normal(ks + (i, o)) * std).astype(np.float32)
         if layer.bias is not None:
             flat[f"{name}.b"] = np.zeros((o,), np.float32)
     return flat

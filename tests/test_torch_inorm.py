@@ -47,7 +47,8 @@ def test_pair_sums_against_float64(dtype):
 
 
 def test_affine_map_act_rounds_once():
-    """bf16 in, the map in f32, one rounding to bf16, the ReLU fused."""
+    """bf16 in, the map in f32, one rounding to bf16, the ReLU fused; an
+    activation the port does not have is refused."""
     rng = np.random.default_rng(13)
     x = torch.from_numpy(rng.normal(size=(2, 50, 64)).astype(np.float32)).to(torch.bfloat16)
     scale = torch.from_numpy(rng.random((2, 64), dtype=np.float32) + 0.5)
@@ -56,7 +57,7 @@ def test_affine_map_act_rounds_once():
     ref = torch.relu(x.float() * scale[:, None] + shift[:, None]).to(torch.bfloat16)
     assert y.dtype == torch.bfloat16 and torch.equal(y, ref)
     with pytest.raises(NotImplementedError):
-        inorm.affine_map_act(x, scale, shift, "leaky")
+        inorm.affine_map_act(x, scale, shift, "tanh")
 
 
 def test_norm_coefficients_match_jax_formula():
