@@ -23,14 +23,17 @@ Phases, each printed with its name, seconds and result:
   6. train: ``neuroclear_tpu_torch.train_onecube.main`` on a synthetic 160^3
      uint16 volume at the production Apollo configuration (108^3 crops,
      bf16, Kaiming weights from the seed): one warm-up step and five timed
-     ones, the launches of every kernel per step checked exactly; then one
-     step from identical weights, crop and draws three ways (kernels in bf16,
-     plain versions in bf16, plain versions in f32), the kernel path's
-     losses and gradients held against f32 no worse than the plain bf16
-     path's; and the written G_A checkpoint run through ``infer.main``;
+     ones on the card's clock (the trainer syncs only at the end), the
+     launches of every kernel per step checked exactly; then one step from
+     identical weights, crop and draws three ways (kernels in bf16, plain
+     versions in bf16, plain versions in f32), the kernel path's losses and
+     gradients held against f32 no worse than the plain bf16 path's, and
+     each gradient tensor against the plain bf16 step's; and the written G_A
+     checkpoint run through ``infer.main``;
   7. profile (only with --profile): a warm run of the slice's tile pipeline
      and a warm training step under torch.profiler, device time by kernel
-     and the device's idle share.
+     and the device's idle share, and warm steps with and without a sync
+     after each.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero before that line.  The whole run has a 600 s budget.
@@ -70,6 +73,7 @@ BUDGET_S = 600
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+SLEEP_CYCLES_S = 1.98e9  # the H100 SXM's boost clock: torch.cuda._sleep counts cycles
 
 # One 2 x 140^3 tile batch of the main path (dice 120, border_cut 10):
 # (shape, launches per batch) for each kernel
@@ -132,9 +136,16 @@ TRAIN_NORM = [((1, CROP ** 3, 64), 3, "relu"), ((1, (CROP // 2) ** 3, 128), 4, "
 # loss.  G_A, G_B and the four discriminators pooled: relative L2 at most 1.5
 # times the plain path's plus 0.02.  Per gradient tensor, a looser tripwire:
 # three times plus 0.05.  Pre-norm biases (true gradient 0) are left out.
+# These hold G_A loosely: bf16 moves its gradients ~47% from f32 on both paths.
+# The kernel step against the plain bf16 step, tensor by tensor (relative L2,
+# limit per net), holds the backward kernels tighter.  Measured on an H100 at
+# seed 0 (deterministic): largest G_A 0.394, G_B 0.0039, discriminators 0.119;
+# a zeroed dx gives 1.0 on the tensors it feeds, a halved dw 0.50 on G_B's
+# feat1, a bwd_map without its mgy term 1.8 on a discriminator.
 STEP_LOSS_RATIO, STEP_LOSS_REL = 2.0, 1e-2
 STEP_GRAD_RATIO, STEP_GRAD_ABS = 1.5, 0.02
 STEP_TENSOR_RATIO, STEP_TENSOR_ABS = 3.0, 0.05
+STEP_DIRECT = {"G_A": 0.6, "G_B": 0.04, "D": 0.3}
 PRE_NORM = ("double_conv", "bottom_layer", "ex_double_conv2", "ex_conv1_1", "conv1",
             "conv2", "conv3")
 
@@ -171,16 +182,29 @@ class Phase:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn over reps calls, after one warm-up call."""
+    """Mean device time of fn over reps calls, after one warm-up call.  A
+    sleep kernel holds the stream while the host queues the calls, so that a
+    call's host cost (a wrapper's checks and launch, 30-80 us) is not
+    counted where it exceeds the kernel's own time; the sleep is lengthened
+    until the last call is queued before it ends."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    sleep_s = 2.0 * (time.perf_counter() - t0) * reps + 1e-3
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    while True:
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_S))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()  # the sleep still ran when the last call was queued
+        torch.cuda.synchronize()
+        if held or sleep_s > 1.0:
+            return start.elapsed_time(end) / reps
+        sleep_s *= 4.0
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, float]:
@@ -527,10 +551,10 @@ def _rel_l2(a: dict, b: dict, keys) -> float:
     return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in keys))
 
 
-def check_step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
-    """One step from identical weights, crop and draws: the kernels in bf16,
-    the plain versions in bf16 and in f32; the kernel path's losses and
-    gradients against f32 no worse than the plain bf16 path's."""
+def step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
+    """One step from identical weights, crop and draws: {label: (losses,
+    gradients)} for the kernels in bf16 and the plain versions in bf16 and
+    in f32."""
     opt = train_onecube.build_parser().parse_args(["--dataroot", "unused", *TRAIN_ARGS])
     dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -553,36 +577,55 @@ def check_step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
                        _grads_by_name(model, g_grads, d_grads))
         del model, g_grads, d_grads
         torch.cuda.empty_cache()
+    return runs
+
+
+def judge_step(runs: dict) -> tuple[list, dict]:
+    """(failures, stats) of the kernel step against the plain steps."""
     (lk, gk), (lp, gp), (lf, gf) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
-    bad = []
+    bad, stats = [], {"pooled": {}, "direct": {}}
     for name in LOSS_NAMES:
         ek, ep = abs(lk[name] - lf[name]), abs(lp[name] - lf[name])
         if ek > STEP_LOSS_RATIO * ep + STEP_LOSS_REL * abs(lf[name]):
             bad.append(f"loss {name}: {ek:.4g} vs plain {ep:.4g}")
     keys = [k for k in gf if not _is_pre_norm_bias(k)]
-    pooled = {}
     for group, nets in (("G_A", ["G_A"]), ("G_B", ["G_B"]), ("D", D_NAMES)):
         ks = [k for k in keys if k.split(".")[0] in nets]
         ek, ep = _rel_l2(gk, gf, ks), _rel_l2(gp, gf, ks)
-        pooled[group] = (ek, ep)
+        stats["pooled"][group] = (ek, ep)
         if ek > STEP_GRAD_RATIO * ep + STEP_GRAD_ABS:
             bad.append(f"gradients {group}: {ek:.4g} vs plain {ep:.4g}")
-    worst = (0.0, "")
+        # the kernel step against the plain bf16 step, tensor by tensor
+        direct = sorted(((_rel_l2(gk, gp, [k]), k) for k in ks), reverse=True)
+        stats["direct"][group] = direct[:3]
+        for d, k in direct:
+            if d > STEP_DIRECT[group]:
+                bad.append(f"gradient {k}: {d:.4g} off the plain bf16 step "
+                           f"(limit {STEP_DIRECT[group]})")
     for k in keys:
         ek, ep = _rel_l2(gk, gf, [k]), _rel_l2(gp, gf, [k])
-        worst = max(worst, (ek - ep, k))
         if ek > STEP_TENSOR_RATIO * ep + STEP_TENSOR_ABS:
             bad.append(f"gradient {k}: {ek:.4g} vs plain {ep:.4g}")
+    return bad, stats
+
+
+def check_step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
+    """The kernel step's losses and gradients against the f32 plain step, no
+    worse than the plain bf16 step's, and against the plain bf16 step."""
+    runs = step_three_ways(seed, vol, dev)
+    bad, stats = judge_step(runs)
+    (lk, _), (lp, _), (lf, _) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
     log("  step at 108^3, relative error against the plain f32 step (kernels bf16 / plain "
-        "bf16): " + "; ".join(f"{g} gradients {ek:.4g} / {ep:.4g}" for g, (ek, ep) in pooled.items()))
+        "bf16): " + "; ".join(f"{g} gradients {ek:.4g} / {ep:.4g}"
+                              for g, (ek, ep) in stats["pooled"].items()))
     log("  losses (f32 | kernels bf16 | plain bf16): " + "; ".join(
         f"{n} {lf[n]:.5g} | {lk[n]:.5g} | {lp[n]:.5g}" for n in LOSS_NAMES))
-    log(f"  largest excess of a kernel-path tensor error over the plain one: {worst[0]:.4g} "
-        f"({worst[1]})")
+    log("  kernel step against the plain bf16 step, largest relative L2 per tensor: " + "; ".join(
+        f"{g} " + ", ".join(f"{d:.4g} ({k})" for d, k in top)
+        for g, top in stats["direct"].items()))
     if bad:
-        raise AssertionError("kernel step less accurate than the plain bf16 step: "
-                             + "; ".join(bad))
-    return pooled
+        raise AssertionError("kernel step off the plain steps: " + "; ".join(bad))
+    return stats["pooled"]
 
 
 def run_train(seed: int, dev, tmp: str) -> dict:
@@ -596,7 +639,8 @@ def run_train(seed: int, dev, tmp: str) -> dict:
     kernel_ops.reset_launches()
     res = train_onecube.main(["--dataroot", data, "--name", "smoke", "--checkpoints_dir", ckpt,
                               "--max_iters", str(TRAIN_ITERS), "--save_latest_freq",
-                              str(TRAIN_ITERS), "--save_by_iter", "--print_freq", "1",
+                              str(TRAIN_ITERS), "--save_by_iter", "--print_freq",
+                              str(TRAIN_ITERS),
                               "--seed", str(seed), *TRAIN_ARGS])
     launches = kernel_ops.launches()
     expected = {k: TRAIN_ITERS * v for k, v in STEP_LAUNCHES.items()}
@@ -679,12 +723,24 @@ def profile_train_step(dev, seed: int) -> None:
     model.init_weights(seed)
     gen = torch.Generator().manual_seed(seed)
 
-    def step():
+    def step(sync=True):
         model.optimize_parameters(dataset.sample(gen), model.draw_probes((CROP,) * 3, gen))
+        if sync:
+            torch.cuda.synchronize()
+
+    def steps_ms(n, sync_each):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(sync_each)
         torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
 
     step()
     step()
+    # what the host gains by queuing a step while the card runs the one before
+    ab = [steps_ms(5, True), steps_ms(5, False), steps_ms(5, False), steps_ms(5, True)]
+    log(f"  warm steps, wall ms per step over 5 (order: sync after each, one sync at the end, "
+        f"one sync at the end, sync after each): {', '.join(f'{t:.1f}' for t in ab)}")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     step()

@@ -80,18 +80,15 @@ class ApolloModel:
             gan_mode=opt.gan_mode, lambda_A=opt.lambda_A,
             lambda_plane=tuple(opt.lambda_plane),
             randomize_projection_depth=opt.randomize_projection_depth,
-            projection_depth=opt.projection_depth,
-            min_projection_depth=opt.min_projection_depth, precision=opt.precision)
+            projection_depth=opt.projection_depth, precision=opt.precision)
+        # one channel in and out, 64 filters, 3-layer discriminators: the
+        # production configuration's (the JAX CLI's defaults)
         self.nets = {
-            "G_A": factory.define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.netG,
-                                    opt.norm, plain=plain),
-            "G_B": factory.define_G(opt.output_nc, opt.input_nc, opt.ngf, opt.netG_B,
-                                    opt.norm, plain=plain),
+            "G_A": factory.define_G(1, 1, 64, opt.netG, opt.norm, plain=plain),
+            "G_B": factory.define_G(1, 1, 64, opt.netG_B, opt.norm, plain=plain),
         }
         for name in D_NAMES:
-            nc = opt.output_nc if name.startswith("D_A") else opt.input_nc
-            self.nets[name] = factory.define_D(nc, opt.ndf, opt.netD, opt.n_layers_D,
-                                               opt.norm, plain=plain)
+            self.nets[name] = factory.define_D(1, 64, opt.netD, 3, opt.norm, plain=plain)
         for net in self.nets.values():
             net.to(self.device)
         self.g_params = [p for n in G_NAMES for p in self.nets[n].parameters()]

@@ -25,7 +25,6 @@ class GanStepConfig:
     lambda_plane: tuple = (1, 1, 1)
     randomize_projection_depth: bool = False
     projection_depth: int = 10
-    min_projection_depth: int = 2
     precision: str = "float32"  # compute dtype; params and Adam stay f32
 
     @property
@@ -56,11 +55,11 @@ def probe_proj(vol, start: int, depth: int, axis: int, d_apply):
 
 def sample_projection_depth(cfg: GanStepConfig, generator: torch.Generator) -> int:
     """Per-step MIP depth (apollo_model.py:157-160): uniform on
-    [max(2, min_projection_depth), projection_depth] when randomized."""
+    [2, projection_depth] when randomized (2: the JAX CLI's
+    ``--min_projection_depth`` default, which the production run keeps)."""
     if not cfg.randomize_projection_depth:
         return cfg.projection_depth
-    lo = max(2, cfg.min_projection_depth)
-    return int(torch.randint(lo, cfg.projection_depth + 1, (), generator=generator))
+    return int(torch.randint(2, cfg.projection_depth + 1, (), generator=generator))
 
 
 def g_gan(pred, cfg: GanStepConfig):

@@ -56,11 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--netG", default="unet_deconv")
     p.add_argument("--netG_B", default="deep_linear_gen")
     p.add_argument("--netD", default="basic")
-    p.add_argument("--n_layers_D", type=int, default=3)
-    p.add_argument("--input_nc", type=int, default=1)
-    p.add_argument("--output_nc", type=int, default=1)
-    p.add_argument("--ngf", type=int, default=64)
-    p.add_argument("--ndf", type=int, default=64)
     p.add_argument("--norm", default="instance")
     p.add_argument("--init_type", default="kaiming")
     p.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
@@ -68,7 +63,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1])
     p.add_argument("--randomize_projection_depth", action="store_true")
     p.add_argument("--projection_depth", type=int, default=10)
-    p.add_argument("--min_projection_depth", type=int, default=2)
     p.add_argument("--beta1", type=float, default=0.1)
     p.add_argument("--lr", type=float, default=0.0001)
     p.add_argument("--lr_policy", default="constant")
@@ -103,7 +97,7 @@ def check_options(opt) -> None:
         (opt.lr_policy != "constant", f"--lr_policy {opt.lr_policy}"),
         (opt.batch_size != 1, "--batch_size > 1"),
         (opt.init_type != "kaiming", f"--init_type {opt.init_type}"),
-        (opt.netD not in ("basic", "n_layers"), f"--netD {opt.netD}"),
+        (opt.netD != "basic", f"--netD {opt.netD}"),
         (opt.norm != "instance", f"--norm {opt.norm}"),
     ]
     for bad, what in refused:
@@ -114,10 +108,29 @@ def check_options(opt) -> None:
         raise NotImplementedError(f"TIFF input {NOT_PORTED}; pass a .npy volume")
 
 
+def _mark(device: torch.device):
+    """A point on the device's timeline, taken without a sync: a CUDA event
+    on the card, the host clock on the CPU (where every op is synchronous)."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _seconds(a, b) -> float:
+    """Seconds from mark a to mark b (both complete)."""
+    return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
+
+
 def main(argv=None) -> dict:
-    """Train.  Returns {"losses": one {name: float} per iteration,
-    "step_seconds": wall seconds of each iteration (each ends in a device
-    sync), "checkpoints": paths written, "device": the device}."""
+    """Train.  The losses are read back (a device sync) only every
+    ``--print_freq`` iterations and at the end, so the host queues a step
+    while the card runs the one before.  With ``--max_iters`` N, returns
+    {"losses": one {name: float} per iteration, "step_seconds": seconds of
+    each iteration on the device's clock (from the end of one to the end of
+    the next), "checkpoints": paths written, "device": the device}; without
+    it the run keeps no history and does not return."""
     opt = build_parser().parse_args(argv)
     check_options(opt)
     device = resolve_device(opt.device)
@@ -134,25 +147,33 @@ def main(argv=None) -> dict:
     print(f"volume {vol.shape} {vol.dtype} on {device}; crops {tuple(opt.crop_size)} "
           f"{opt.precision}", flush=True)
 
-    losses, secs, paths = [], [], []
+    # with --max_iters, each step's losses and end mark, kept without a sync
+    log = torch.empty((opt.max_iters, len(LOSS_NAMES)), device=device)
+    marks = [_mark(device)]
+    window, window_it, paths = marks[0], 0, []
     it = 0
     while not opt.max_iters or it < opt.max_iters:
-        t0 = time.perf_counter()
         real = dataset.sample(gen)
         draws = model.draw_probes(opt.crop_size, gen)
         step_losses, _, _ = model.optimize_parameters(real, draws)
-        values = torch.stack([step_losses[n] for n in LOSS_NAMES]).cpu().tolist()  # syncs
-        secs.append(time.perf_counter() - t0)
-        losses.append(dict(zip(LOSS_NAMES, values)))
+        values = torch.stack([step_losses[n] for n in LOSS_NAMES])
+        end = _mark(device)
+        if opt.max_iters:
+            log[it] = values
+            marks.append(end)
         it += 1
-        if it % opt.print_freq == 0 or it == opt.max_iters:
-            msg = " ".join(f"{k}: {v:.4g}" for k, v in losses[-1].items())
-            print(f"(iters: {it}, time: {secs[-1]:.3f}) {msg}", flush=True)
-        last = bool(opt.max_iters) and it == opt.max_iters
+        last = it == opt.max_iters
+        if it % opt.print_freq == 0 or last:
+            msg = " ".join(f"{k}: {v:.4g}" for k, v in zip(LOSS_NAMES, values.tolist()))
+            per_step = _seconds(window, end) / (it - window_it)
+            print(f"(iters: {it}, time: {per_step:.3f}) {msg}", flush=True)
+            window, window_it = end, it
         if it % opt.save_latest_freq == 0 or last:
             suffix = f"iter_{it}" if opt.save_by_iter else "latest"
             paths += model.save_networks(suffix)
             print(f"saving the model at iteration {it} ({suffix})", flush=True)
+    losses = [dict(zip(LOSS_NAMES, row)) for row in log.tolist()]
+    secs = [_seconds(a, b) for a, b in zip(marks, marks[1:])]
     return {"losses": losses, "step_seconds": secs, "checkpoints": paths, "device": device}
 
 

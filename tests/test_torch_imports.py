@@ -1,7 +1,8 @@
-"""The port stands alone: ``neuroclear_tpu_torch`` (every module) and
-``chip_smoke`` import with ``jax``, ``PIL`` and ``neuroclear_tpu`` blocked, as
-on a torch-only machine with the card; and the entry point refuses to run
-when CUDA is absent and the CPU was not asked for."""
+"""The port stands alone: ``neuroclear_tpu_torch`` (every module),
+``chip_smoke`` and ``chip_smoke_faults`` import with ``jax``, ``PIL`` and
+``neuroclear_tpu`` blocked, as on a torch-only machine with the card; and the
+entry point refuses to run when CUDA is absent and the CPU was not asked
+for."""
 
 import os
 import subprocess
@@ -41,6 +42,7 @@ def test_port_and_chip_smoke_import_without_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        import chip_smoke_faults
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded
         print(len(names), "modules")

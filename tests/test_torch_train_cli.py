@@ -123,7 +123,8 @@ def test_crop_draws_cover_the_inclusive_range():
     ["--preprocess", "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel"],
     ["--preprocess", "random90rotate_randomcrop_addColorChannel_addBatchChannel"],
     ["--remat"], ["--grad_accum", "2"], ["--continue_train"], ["--lr_policy", "linear"],
-    ["--model", "axial_to_lateral_gan_athena"], ["--dataroot", "volume.tif"]])
+    ["--model", "axial_to_lateral_gan_athena"], ["--netD", "n_layers"],
+    ["--dataroot", "volume.tif"]])
 def test_options_not_ported_are_refused(tmp_path, extra):
     argv = ["--dataroot", str(tmp_path / "missing.npy"), "--device", "cpu", *ARGS, *extra]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
