@@ -8,19 +8,30 @@ Phases, each printed with its name, seconds and result:
   2. build: every CUDA kernel from ops/csrc with nvcc (sm_90a);
   3. kernels: each inference kernel against its plain PyTorch version on the
      card, in bf16 at the shapes one 2 x 140^3 tile batch of the inference
-     path gives it, with its time, the plain version's, one PyTorch library
-     call's where there is one, and its bound at the H100's published peaks;
+     path gives it (the dense-K conv at the four half-resolution 128-output
+     convs, and its autograd Function once at a 54^3 training shape), with
+     its time, the plain version's, one PyTorch library call's where there
+     is one, and its bound at the H100's published peaks;
   4. kernels (training): the same for the training step's kernels at the
      shapes one 108^3 Apollo step gives them: the conv's input gradient
      (64 -> 64 and 64 -> 128) and weight gradient (cin 64 and 128), the
      norm's backward sums and map and the forward map with the
      pre-activation kept, at the generator's and the discriminators' shapes;
-  5. slice: ``neuroclear_tpu_torch.infer.main`` on a synthetic 260^3 uint16
-     volume with random Kaiming UNetDeconv weights in the JAX checkpoint
-     format (27 tiles of 140^3, bf16, tile_batch 2), the launch counts of
-     every kernel checked, and the output held against the same pipeline on
-     the plain versions on the card;
-  6. train: ``neuroclear_tpu_torch.train_onecube.main`` on a synthetic 160^3
+  5. slice: ``neuroclear_tpu_torch.test_dice.main`` on a synthetic 260^3
+     uint16 ``.npy`` volume with random Kaiming UNetDeconv weights in the JAX
+     checkpoint format (27 tiles of 140^3, bf16, tile_batch 2), the launch
+     counts of every kernel checked, and the output held against the same
+     pipeline on the plain versions on the card;
+  6. dice CLI: ``neuroclear_tpu_torch.test_dice.main`` with
+     ``NEUROCLEAR_PALLAS_CONV=1`` on a synthetic 260^3 uint16 TIFF and a
+     ground-truth TIFF, the slice's weights and flags, ``--save_volume
+     --save_projections``: the dense-K conv launched exactly four times per
+     generator application beside the slice's kernels, the TIFF streamed
+     during the harvest read back equal to the volume in memory, the output
+     held on the slice's bounds against the slice's f32 plain output and
+     against the same route on the plain versions in bf16, and the device
+     metrics against the host float64 path;
+  7. train: ``neuroclear_tpu_torch.train_onecube.main`` on a synthetic 160^3
      uint16 volume at the production Apollo configuration (108^3 crops,
      bf16, Kaiming weights from the seed): one warm-up step and five timed
      ones on the card's clock (the trainer syncs only at the end), the
@@ -29,11 +40,11 @@ Phases, each printed with its name, seconds and result:
      versions in bf16, plain versions in f32), the kernel path's losses and
      gradients held against f32 no worse than the plain bf16 path's, and
      each gradient tensor against the plain bf16 step's; and the written G_A
-     checkpoint run through ``infer.main``;
-  7. profile (only with --profile): a warm run of the slice's tile pipeline
-     and a warm training step under torch.profiler, device time by kernel
-     and the device's idle share, and warm steps with and without a sync
-     after each.
+     checkpoint run through ``test_dice.main``;
+  8. profile (only with --profile): a warm run of the slice's tile pipeline
+     (without and with the dense-K conv) and a warm training step under
+     torch.profiler, device time by kernel and the device's idle share, and
+     warm steps with and without a sync after each.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero before that line.  The whole run has a 600 s budget.
@@ -42,6 +53,7 @@ exits nonzero before that line.  The whole run has a 600 s budget.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import math
@@ -56,15 +68,17 @@ import torch
 import torch.nn.functional as F
 
 import neuroclear_tpu_torch.ops as kernel_ops
-from neuroclear_tpu_torch import infer, train_onecube
+from neuroclear_tpu_torch import test_dice, train_onecube
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
     D_NAMES, G_NAMES, LOSS_NAMES, ApolloModel)
 from neuroclear_tpu_torch.nn.factory import define_G
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
-from neuroclear_tpu_torch.ops import build, inorm, wconv
+from neuroclear_tpu_torch.ops import build, conv3x3, inorm, wconv
+from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
+from neuroclear_tpu_torch.utils import tiffio
 from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import kaiming_flat, params_from_numpy
 
@@ -75,11 +89,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 SLEEP_CYCLES_S = 1.98e9  # the H100 SXM's boost clock: torch.cuda._sleep counts cycles
 
-# One 2 x 140^3 tile batch of the main path (dice 120, border_cut 10):
-# (shape, launches per batch) for each kernel
+# One 2 x 140^3 tile batch of the main path (dice 120, border_cut 10): for
+# the convs (x shape, cout), one launch each per batch; for the norms
+# (shape, launches per batch)
 TILE = 140
-CONV_SHAPES = [((2, TILE, TILE, TILE, 64), 1),    # double_conv1.conv1
-               ((2, TILE, TILE, TILE, 128), 1)]   # ex_conv1_1.conv0
+CONV_SHAPES = [((2, TILE, TILE, TILE, 64), 64),   # double_conv1.conv1
+               ((2, TILE, TILE, TILE, 128), 64)]  # ex_conv1_1.conv0
+# The dense-K conv (NEUROCLEAR_PALLAS_CONV=1) at the half-resolution
+# 128-output convs
+CONV3X3_SHAPES = [((2, TILE // 2, TILE // 2, TILE // 2, 64), 128),    # double_conv2.conv0
+                  ((2, TILE // 2, TILE // 2, TILE // 2, 128), 128),   # double_conv2.conv1
+                  ((2, TILE // 2, TILE // 2, TILE // 2, 256), 128),   # ex_double_conv2.conv0
+                  ((2, TILE // 2, TILE // 2, TILE // 2, 128), 128)]   # ex_double_conv2.conv1
 NORM_SHAPES = [((2, TILE ** 3, 64), 3),           # double_conv1 x2, ex_conv1_1
                ((2, (TILE // 2) ** 3, 128), 4),   # double_conv2 x2, ex_double_conv2 x2
                ((2, (TILE // 4) ** 3, 256), 3)]   # bottom_layer x3
@@ -120,7 +141,7 @@ TRAIN_ARGS = ["--model", "axial_to_lateral_gan_apollo", "--netG", "unet_deconv",
 # of the 18 discriminator applications: 6 probes in the G loss, 12 in the D
 # loss) is differentiated.
 STEP_LAUNCHES = {"wconv3x3x3": 3, "wconv_dx": 3, "wconv_dw": 3, "pair_sums": 64,
-                 "affine_map_act": 64, "pair_sums_gy": 64, "bwd_map": 64}
+                 "affine_map_act": 64, "pair_sums_gy": 64, "bwd_map": 64, "conv3x3": 0}
 # (forward cin, launches per step): dx has cout = cin, dw the (27, 64, cin) shape
 TRAIN_CONV = [(64, 2), (128, 1)]
 # (N, R, C), launches per step, activation after the norm
@@ -221,51 +242,85 @@ def within_bf16_ulp(k: torch.Tensor, p: torch.Tensor) -> bool:
     return bool(((k - p).abs() <= torch.where(m > 0, step, torch.zeros_like(m))).all())
 
 
-def check_conv(gen, dev) -> dict:
-    """wconv kernel vs its plain version at both of the path's shapes."""
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "tb": 0.0, "to": 0.0, "err": 0.0}
-    for shape, mult in CONV_SHAPES:
+def check_conv(gen, dev, mod, shapes) -> dict:
+    """A conv kernel wrapper (``wconv`` or ``conv3x3``) vs its plain version
+    and cuDNN's f32 conv at the path's shapes, summed over one tile batch."""
+    name = mod.__name__.rsplit(".", 1)[-1]
+    tot = _tot()
+    for shape, cout in shapes:
         b, d, h, w, cin = shape
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        wgt = (torch.randn((64, cin, 3, 3, 3), generator=gen, device=dev)
+        wgt = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
                * math.sqrt(2.0 / (27 * cin))).to(torch.bfloat16)
-        bias = torch.randn(64, generator=gen, device=dev) * 0.1
+        bias = torch.randn(cout, generator=gen, device=dev) * 0.1
         wt = wconv.pack_weight(wgt)
-        y = wconv.conv3d(x, wt, bias)
+        y = mod.conv3d(x, wt, bias)
         torch.cuda.synchronize()
-        p = wconv.conv3d_plain(x, wt, bias)
+        p = mod.conv3d_plain(x, wt, bias)
         err = (y.float() - p.float()).abs()
         # one bf16 rounding of sums that differ in order only: one bf16 step
         # (2^-7 relative) plus a floor for outputs near zero
         tol = 2.0 ** -7 * p.float().abs() + 2.0 ** -12 * p.float().abs().max()
         max_err = err.max().item()
         if not bool((err <= tol).all()):
-            raise AssertionError(f"wconv {shape}: max error {max_err} over tolerance")
+            raise AssertionError(f"{name} {shape}->{cout}: max error {max_err} over tolerance")
         del p, err
         x_cl = x.permute(0, 4, 1, 2, 3)  # channels-last NCDHW view for cuDNN
         # and against cuDNN's f32 conv (TF32 off) of the same bf16 inputs
         ref32 = F.conv3d(x_cl.float(), wgt.float(), bias, 1, 1).permute(0, 2, 3, 4, 1)
         if not bool(((y.float() - ref32).abs() <= tol).all()):
-            raise AssertionError(f"wconv {shape}: off F.conv3d in f32")
+            raise AssertionError(f"{name} {shape}->{cout}: off F.conv3d in f32")
         del ref32, tol
         bias16 = bias.to(torch.bfloat16)
-        ms = cuda_ms(lambda: wconv.conv3d(x, wt, bias), 5)
-        plain = cuda_ms(lambda: wconv.conv3d_plain(x, wt, bias), 1)
+        ms = cuda_ms(lambda: mod.conv3d(x, wt, bias), 5)
+        plain = cuda_ms(lambda: mod.conv3d_plain(x, wt, bias), 1)
         lib = cuda_ms(lambda: F.conv3d(x_cl, wgt, bias16, 1, 1), 5)
         m = b * d * h * w
-        flops = 2.0 * m * 64 * 27 * cin
-        tb, to = bound_ms(m * cin * 2 + 27 * cin * 64 * 2 + 64 * 4 + m * 64 * 2, flops,
+        flops = 2.0 * m * cout * 27 * cin
+        tb, to = bound_ms(m * cin * 2 + 27 * cin * cout * 2 + cout * 4 + m * cout * 2, flops,
                           PEAK_BF16_FLOPS)
-        log(f"  wconv {shape}: max_abs_err {max_err:.4g}  kernel {ms:.3f} ms "
+        log(f"  {name} {shape}->{cout}: max_abs_err {max_err:.4g}  kernel {ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain:.3f} ms  F.conv3d {lib:.3f} ms  "
             f"bound {max(tb, to):.3f} ms")
-        tot["err"] = max(tot["err"], max_err)
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("tb", tb),
-                       ("to", to)):
-            tot[key] += mult * v
+        _add(tot, 1, max_err, ms=ms, plain_ms=plain, library_ms=lib, tb=tb, to=to)
         del x, y, x_cl
         torch.cuda.empty_cache()
+    log(f"  {name} per tile batch: kernel {tot['ms']:.3f} ms, F.conv3d {tot['library_ms']:.3f} "
+        f"ms, bound {max(tot['tb'], tot['to']):.3f} ms")
     return tot
+
+
+def check_conv3x3_fn(gen, dev) -> None:
+    """Conv3x3Fn at ex_double_conv2.conv0 of a 108^3 step: the kernel forward
+    and PyTorch's bf16 conv gradients against autograd of the plain version
+    in f32 on the same bf16 values: one bf16 rounding of the kernel path's
+    outputs, plus a floor of one bf16 step of the largest entry for sums that
+    cancel."""
+    half = CROP // 2
+    x = torch.randn((1, half, half, half, 256), generator=gen, device=dev).to(torch.bfloat16)
+    wgt = (torch.randn((128, 256, 3, 3, 3), generator=gen, device=dev)
+           * math.sqrt(2.0 / (27 * 256))).to(torch.bfloat16)
+    bias = torch.randn(128, generator=gen, device=dev) * 0.1
+    gy = torch.randn((1, half, half, half, 128), generator=gen, device=dev).to(torch.bfloat16)
+    runs = []
+    for dt, fn in ((torch.bfloat16, lambda a, wp, c: conv3x3.Conv3x3Fn.apply(a, wp, c, False)),
+                   (torch.float32, conv3x3.conv3d_plain)):
+        xr, wr = (t.detach().to(dt).requires_grad_(True) for t in (x, wgt))
+        br = bias.clone().requires_grad_(True)
+        y = fn(xr, wconv.pack_weight(wr), br)
+        y.backward(gy.to(dt))
+        runs.append([y.detach().float(), xr.grad.float(), wr.grad.float(), br.grad])
+    torch.cuda.synchronize()
+    got, ref = runs
+    for name, k, p in zip(("y", "dx", "dw", "db"), got, ref):
+        tol = 2.0 ** -7 * p.abs() + 2.0 ** -8 * p.abs().max()
+        e = (k - p).abs().max().item()
+        log(f"  Conv3x3Fn (1,{half}^3,256)->128 {name}: max_abs_err {e:.4g} of "
+            f"{p.abs().max().item():.4g}")
+        if not bool(((k - p).abs() <= tol).all()):
+            raise AssertionError(f"Conv3x3Fn {name}: max error {e} over tolerance")
+    del x, gy, runs, got, ref
+    torch.cuda.empty_cache()
 
 
 def check_norm(gen, dev) -> tuple[dict, dict]:
@@ -448,15 +503,63 @@ def check_train_norm(gen, dev) -> tuple[dict, dict]:
     return sums, bmap
 
 
-def synthetic_volume(seed: int, size: int = VOLUME) -> np.ndarray:
-    """A smooth random field with noise, uint16, from the seed."""
+def synthetic_volume(seed: int, size: int = VOLUME, noise: float = 3000.0) -> np.ndarray:
+    """A smooth random field with noise, uint16, from the seed (noise 0:
+    the field alone, the ground truth of the noisy volume)."""
     rng = np.random.default_rng(seed)
     ax = np.arange(size, dtype=np.float32)
     ph = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
     field = (np.sin(ax / 9.0 + ph[0])[:, None, None] * np.cos(ax / 13.0 + ph[1])[None, :, None]
              * np.sin(ax / 7.0 + ph[2])[None, None, :])
-    vol = 20000.0 + 15000.0 * field + rng.normal(0.0, 3000.0, field.shape).astype(np.float32)
+    vol = 20000.0 + 15000.0 * field + rng.normal(0.0, noise, field.shape).astype(np.float32)
     return np.clip(vol, 0, 65535).astype(np.uint16)
+
+
+def lsb_stats(a: np.ndarray, ref: np.ndarray) -> dict:
+    d = np.abs(a.astype(np.int64) - ref)
+    return {"max_lsb": int(d.max()), "mean_lsb": float(d.mean()),
+            "p999_lsb": float(np.quantile(d, 0.999))}
+
+
+def plain_outputs(flat: dict, vol: np.ndarray, dev, precisions) -> tuple[dict, dict]:
+    """The slice's tile pipeline on the plain versions, on the card: {precision:
+    int64 output} and {precision: seconds}; no kernel may launch."""
+    vp = pad_for_dicing(vol, 120, 15)
+    grid = DiceGrid(vp.shape, 120, 15, 10)
+    plain = define_G(1, 1, 64, "unet_deconv", plain=True)
+    plain.load_state_dict(params_from_numpy(flat, plain))
+    plain.to(dev).eval()
+    outs, secs = {}, {}
+    before = kernel_ops.launches()
+    for precision in precisions:
+        pipe = DiceInferencePipeline(plain, grid, dtype_inv_scale(vp.dtype), tile_batch=2,
+                                     precision=precision, out_dtype=np.uint16,
+                                     orig_shape=vol.shape, device=dev)
+        t0 = time.perf_counter()
+        outs[precision] = pipe.run_streaming(vp).astype(np.int64)
+        secs[precision] = time.perf_counter() - t0
+    if kernel_ops.launches() != before:
+        raise AssertionError("the plain pipeline launched a kernel")
+    return outs, secs
+
+
+def check_against_plain(label: str, out: np.ndarray, ref: np.ndarray, p_err: dict,
+                        plain_bf16: np.ndarray) -> tuple[dict, np.ndarray]:
+    """The slice's bounds: the kernel path's bf16 output no less accurate
+    against the f32 plain output than the plain versions in bf16, and within
+    SLICE_KP_* of that plain bf16 output."""
+    k_err = lsb_stats(out, ref)
+    kp = np.abs(out.astype(np.int64) - plain_bf16)
+    log(f"  against the f32 plain output: {label} (bf16) {k_err}; plain versions (bf16) "
+        f"{p_err}; {label} vs plain (bf16): max {int(kp.max())} LSB, mean "
+        f"{float(kp.mean()):.3f} LSB, {float((kp > 0).mean()):.4f} of voxels differ; "
+        f"output mean {out.mean():.1f} std {out.std():.1f}")
+    if (k_err["mean_lsb"] > SLICE_MEAN_RATIO * p_err["mean_lsb"]
+            or k_err["max_lsb"] > p_err["max_lsb"] + SLICE_MAX_EXTRA_LSB):
+        raise AssertionError(f"{label} less accurate than the plain path: {k_err} vs {p_err}")
+    if kp.max() > SLICE_KP_MAX_LSB or kp.mean() > SLICE_KP_MEAN_LSB:
+        raise AssertionError(f"{label} off the plain path: max {kp.max()}, mean {kp.mean()}")
+    return k_err, kp
 
 
 def run_slice(seed: int, dev, tmp: str) -> dict:
@@ -476,63 +579,116 @@ def run_slice(seed: int, dev, tmp: str) -> dict:
                      "affine_map_act": 10 * batches})
     log(f"  {len(grid)} tiles of {roi + 20}^3 in {batches} batches of <= 2")
 
+    def run(results):
+        return test_dice.main(["--dataroot", os.path.join(tmp, "data"), "--name", "smoke",
+                               "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--load_iter",
+                               "1", "--model_suffix", "_A", "--results_dir",
+                               os.path.join(tmp, results), *SLICE_ARGS])
+
     kernel_ops.reset_launches()
-    res = infer.main(["--dataroot", os.path.join(tmp, "data"), "--name", "smoke",
-                      "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--load_iter", "1",
-                      "--model_suffix", "_A", "--results_dir", os.path.join(tmp, "results"),
-                      *SLICE_ARGS])
+    res = run("results")
     launches = kernel_ops.launches()
     log(f"  launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
-    warm = infer.main(["--dataroot", os.path.join(tmp, "data"), "--name", "smoke",
-                       "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--load_iter", "1",
-                       "--model_suffix", "_A", "--results_dir", os.path.join(tmp, "warm"),
-                       *SLICE_ARGS])
-    out = np.load(res["output"])
+    warm = run("warm")
+    out = res["fake"]
     if out.shape != vol.shape or out.dtype != np.uint16 or out.std() == 0:
         raise AssertionError(f"output {out.shape} {out.dtype} std {out.std()}")
 
     # the same pipeline on the plain versions, on the card, in bf16 and f32
-    plain = define_G(1, 1, 64, "unet_deconv", plain=True)
-    plain.load_state_dict(params_from_numpy(flat, plain))
-    plain.to(dev).eval()
-    vp = pad_for_dicing(vol, roi, overlap)
-    outs, plain_s = {}, {}
-    before = kernel_ops.launches()
-    for precision in ("bfloat16", "float32"):
-        pipe = DiceInferencePipeline(plain, grid, dtype_inv_scale(vp.dtype), tile_batch=2,
-                                     precision=precision, out_dtype=np.uint16,
-                                     orig_shape=vol.shape, device=dev)
-        t0 = time.perf_counter()
-        outs[precision] = pipe.run_streaming(vp).astype(np.int64)
-        plain_s[precision] = time.perf_counter() - t0
-    if kernel_ops.launches() != before:
-        raise AssertionError("the plain pipeline launched a kernel")
+    outs, plain_s = plain_outputs(flat, vol, dev, ("bfloat16", "float32"))
     ref = outs["float32"]
-
-    def lsb_stats(a):
-        d = np.abs(a - ref)
-        return {"max_lsb": int(d.max()), "mean_lsb": float(d.mean()),
-                "p999_lsb": float(np.quantile(d, 0.999))}
-
-    k_err, p_err = lsb_stats(out.astype(np.int64)), lsb_stats(outs["bfloat16"])
-    kp = np.abs(out.astype(np.int64) - outs["bfloat16"])
-    log(f"  against the f32 plain output: kernels (bf16) {k_err}; plain versions (bf16) "
-        f"{p_err}; kernels vs plain (bf16): max {int(kp.max())} LSB, mean "
-        f"{float(kp.mean()):.3f} LSB, {float((kp > 0).mean()):.4f} of voxels differ; "
-        f"output mean {out.mean():.1f} std {out.std():.1f}")
-    if (k_err["mean_lsb"] > SLICE_MEAN_RATIO * p_err["mean_lsb"]
-            or k_err["max_lsb"] > p_err["max_lsb"] + SLICE_MAX_EXTRA_LSB):
-        raise AssertionError(f"kernel path less accurate than the plain path: {k_err} vs {p_err}")
-    if kp.max() > SLICE_KP_MAX_LSB or kp.mean() > SLICE_KP_MEAN_LSB:
-        raise AssertionError(f"kernel path off the plain path: max {kp.max()}, mean {kp.mean()}")
+    p_err = lsb_stats(outs["bfloat16"], ref)
+    k_err, _ = check_against_plain("kernels", out, ref, p_err, outs["bfloat16"])
     vps = res["voxels"] / res["seconds"]
-    log(f"  pipeline {res['seconds']:.3f} s = {vps:.4g} voxel/s with the kernels (bf16, first "
-        f"run), {warm['seconds']:.3f} s = {res['voxels'] / warm['seconds']:.4g} voxel/s (second); "
-        + "; ".join(f"{t:.3f} s = {res['voxels'] / t:.4g} voxel/s on the plain versions ({p})"
-                    for p, t in plain_s.items()))
-    return {"launches": launches, "k_err": k_err, "seconds": res["seconds"]}
+    log(f"  pipeline and post-processing {res['seconds']:.3f} s = {vps:.4g} voxel/s with the "
+        f"kernels (bf16, first run), {warm['seconds']:.3f} s = "
+        f"{res['voxels'] / warm['seconds']:.4g} voxel/s (second); "
+        + "; ".join(f"{t:.3f} s = {res['voxels'] / t:.4g} voxel/s pipeline on the plain "
+                    f"versions ({p})" for p, t in plain_s.items()))
+    return {"launches": launches, "k_err": k_err, "seconds": res["seconds"], "ref": ref,
+            "p_err": p_err, "out": out}
+
+
+@contextlib.contextmanager
+def dense_k_route():
+    """NEUROCLEAR_PALLAS_CONV=1 for the duration: the dense-K conv route."""
+    os.environ["NEUROCLEAR_PALLAS_CONV"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["NEUROCLEAR_PALLAS_CONV"]
+
+
+def run_dice_cli(seed: int, dev, tmp: str, sl: dict) -> dict:
+    """The test_dice CLI with the dense-K conv switched on: its launches, the
+    streamed TIFF, the output on the slice's bounds against the slice phase's
+    f32 plain output and against the same route on the plain versions in
+    bf16, and the device metrics against the host path."""
+    vol = synthetic_volume(seed)
+    tiffio.imwrite(os.path.join(tmp, "data", "volume.tif"), vol)
+    tiffio.imwrite(os.path.join(tmp, "gt", "volume.tif"), synthetic_volume(seed, noise=0.0))
+    os.makedirs(os.path.join(tmp, "ckpt", "smoke"))
+    flat = kaiming_flat(UNetDeconv(1, 1), seed)
+    np.savez(os.path.join(tmp, "ckpt", "smoke", "iter_1_net_G_A.npz"), **flat)
+    grid = DiceGrid(pad_for_dicing(vol, 120, 15).shape, 120, 15, 10)
+    batches = grid.z_steps * -(-(grid.y_steps * grid.x_steps) // 2)
+    expected = {name: 0 for name in kernel_ops.KERNELS}
+    expected.update({"wconv3x3x3": 2 * batches, "conv3x3": 4 * batches,
+                     "pair_sums": 10 * batches, "affine_map_act": 10 * batches})
+
+    with dense_k_route():
+        kernel_ops.reset_launches()
+        res = test_dice.main(["--dataroot", os.path.join(tmp, "data"),
+                              "--dataroot_gt", os.path.join(tmp, "gt"), "--name", "smoke",
+                              "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--load_iter", "1",
+                              "--model_suffix", "_A", "--results_dir",
+                              os.path.join(tmp, "results"), "--serial_batches", "--preprocess",
+                              "addColorChannel", "--dataset_mode", "diceImage", "--netG",
+                              "unet_deconv", "--image_dimension", "3", "--save_volume",
+                              "--save_projections", *SLICE_ARGS])
+        launches = kernel_ops.launches()
+        route_plain, route_plain_s = plain_outputs(flat, vol, dev, ("bfloat16",))
+    log(f"  launches {launches}, expected {expected} ({batches} generator applications)")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+
+    out = res["fake"]
+    if out.shape != vol.shape or out.dtype != np.uint16 or out.std() == 0:
+        raise AssertionError(f"output {out.shape} {out.dtype} std {out.std()}")
+    if res["fake_streamed"] is None:
+        raise AssertionError("the output volume was not streamed during the harvest")
+    if not np.array_equal(tiffio.imread(res["fake_streamed"]), out):
+        raise AssertionError("the streamed TIFF differs from the volume in memory")
+    k_err, _ = check_against_plain("dense-K route", out, sl["ref"], sl["p_err"],
+                                   route_plain["bfloat16"])
+    vs_slice = np.abs(out.astype(np.int64) - sl["out"].astype(np.int64))
+    log(f"  against the slice's kernel output (cuDNN for those four convs): max "
+        f"{int(vs_slice.max())} LSB, mean {float(vs_slice.mean()):.3f} LSB; the route's plain "
+        f"pipeline (bf16) {route_plain_s['bfloat16']:.3f} s")
+
+    gt = tiffio.imread(os.path.join(tmp, "gt", "volume.tif"))
+    t0 = time.perf_counter()
+    dev_m = device_metrics.protocol_metrics(res["real"], out, gt, device=dev)
+    dev_s = time.perf_counter() - t0
+    if any(abs(dev_m[k] - res["metrics"][k]) > 1e-6 for k in dev_m):
+        raise AssertionError(f"device metrics {dev_m} differ from the CLI's {res['metrics']}")
+    t0 = time.perf_counter()
+    host = test_dice.host_metrics(res["real"], out, gt)
+    host_s = time.perf_counter() - t0
+    log(f"  metrics: device {dev_m} ({dev_s:.2f} s, again); host float64 {host} "
+        f"({host_s:.1f} s)")
+    for k in host:
+        tol = 1e-3 if k.startswith("psnr") else 1e-4
+        if abs(dev_m[k] - host[k]) >= tol:
+            raise AssertionError(f"device metric {k} {dev_m[k]} off the host's {host[k]}")
+    with open(os.path.join(res["web_dir"], "metrics.txt")) as f:
+        for line in f.read().splitlines():
+            log(f"    metrics.txt | {line}")
+    log(f"  CLI pipeline and post-processing {res['seconds']:.3f} s = "
+        f"{res['voxels'] / res['seconds']:.4g} voxel/s (first run, bf16, dense-K route)")
+    return {"launches": launches, "k_err": k_err, "seconds": res["seconds"], "metrics": dev_m}
 
 
 def _grads_by_name(model, g_grads, d_grads) -> dict:
@@ -662,11 +818,12 @@ def run_train(seed: int, dev, tmp: str) -> dict:
     small = os.path.join(tmp, "infer_data")
     os.makedirs(small)
     np.save(os.path.join(small, "volume.npy"), synthetic_volume(seed + 2, 72))
-    out = infer.main(["--dataroot", small, "--name", "smoke", "--checkpoints_dir", ckpt,
-                      "--load_iter", str(TRAIN_ITERS), "--model_suffix", "_A",
-                      "--dice_size", "48", "48", "48", "--overlap", "8", "--border_cut", "4",
-                      "--precision", "bfloat16", "--results_dir", os.path.join(tmp, "train_out")])
-    vol_out = np.load(out["output"])
+    out = test_dice.main(["--dataroot", small, "--name", "smoke", "--checkpoints_dir", ckpt,
+                          "--load_iter", str(TRAIN_ITERS), "--model_suffix", "_A",
+                          "--dice_size", "48", "48", "48", "--overlap", "8", "--border_cut",
+                          "4", "--precision", "bfloat16", "--results_dir",
+                          os.path.join(tmp, "train_out")])
+    vol_out = out["fake"]
     if vol_out.shape != (72, 72, 72) or vol_out.dtype != np.uint16 or vol_out.std() == 0:
         raise AssertionError(f"trained G_A output {vol_out.shape} {vol_out.dtype} "
                              f"std {vol_out.std()}")
@@ -679,6 +836,7 @@ def profile_pipeline(dev, seed: int) -> None:
     timed on the host clock, then the same run under torch.profiler, device
     time by kernel name (the profiler's own overhead stays out of the wall
     time)."""
+    log(f"  tile pipeline, NEUROCLEAR_PALLAS_CONV={int(conv3x3.enabled())}:")
     vol = synthetic_volume(seed)
     vp = pad_for_dicing(vol, 120, 15)
     net = UNetDeconv(1, 1)
@@ -768,8 +926,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a warm run of the slice's tile pipeline and a warm "
-                         "training step")
+                    help="also profile a warm run of the slice's tile pipeline (without and "
+                         "with the dense-K conv) and a warm training step")
     args = ap.parse_args(argv)
     faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)  # a hang ends the run
 
@@ -794,7 +952,9 @@ def main(argv=None) -> int:
         ph.result = f"nvcc sm_90a {secs}; " + " | ".join(regs)
 
     with Phase("kernels") as ph:
-        conv = check_conv(gen, dev)
+        conv = check_conv(gen, dev, wconv, CONV_SHAPES)
+        c3 = check_conv(gen, dev, conv3x3, CONV3X3_SHAPES)
+        check_conv3x3_fn(gen, dev)
         sums, amap = check_norm(gen, dev)
         ph.result = "all kernels within tolerance of their plain versions"
 
@@ -808,6 +968,11 @@ def main(argv=None) -> int:
         ph.result = (f"{VOLUME}^3 uint16 in {sl['seconds']:.3f} s, error against the f32 "
                      f"plain output {sl['k_err']}")
 
+    with Phase("dice CLI") as ph, tempfile.TemporaryDirectory() as tmp:
+        dc = run_dice_cli(args.seed, dev, tmp, sl)
+        ph.result = (f"{VOLUME}^3 uint16 TIFF in {dc['seconds']:.3f} s, error against the f32 "
+                     f"plain output {dc['k_err']}, metrics {dc['metrics']}")
+
     with Phase("train") as ph, tempfile.TemporaryDirectory() as tmp:
         tr = run_train(args.seed, dev, tmp)
         ph.result = (f"{CROP}^3 Apollo step {tr['step_ms']:.1f} ms (median of "
@@ -817,22 +982,26 @@ def main(argv=None) -> int:
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
+            with dense_k_route():
+                profile_pipeline(dev, args.seed)
             profile_train_step(dev, args.seed)
 
     # Times: the inference kernels' rows sum one 2 x 140^3 tile batch's
     # launches, the training kernels' rows one 108^3 step's; launches are
-    # the counts of the slice's run plus the trainer's run.
+    # the counts of the slice's run, the dice CLI's run and the trainer's.
     rows = []
     csrc = "neuroclear_tpu_torch/ops/csrc/"
     for name, src, replaces, tot in (
-            ("wconv3x3x3", "wconv.cu", "pallas_wconv.py:124", conv),
-            ("wconv_dx", "wconv.cu", "pallas_wconv.py:387", dx),
+            ("wconv3x3x3", "conv3x3.cu", "pallas_wconv.py:124", conv),
+            ("wconv_dx", "conv3x3.cu", "pallas_wconv.py:387", dx),
             ("wconv_dw", "wconv_dw.cu", "pallas_wconv.py:231", dw),
             ("pair_sums", "inorm.cu", "pallas_ops.py:69", sums),
             ("affine_map_act", "inorm.cu", "pallas_ops.py:111", amap),
             ("pair_sums_gy", "inorm.cu", "pallas_ops.py:69", sums_gy),
-            ("bwd_map", "inorm.cu", "pallas_ops.py:143", bmap)):
-        by_path = {"infer": sl["launches"][name], "train": tr["launches"][name]}
+            ("bwd_map", "inorm.cu", "pallas_ops.py:143", bmap),
+            ("conv3x3", "conv3x3.cu", "pallas_conv.py:93", c3)):
+        by_path = {"slice": sl["launches"][name], "dice": dc["launches"][name],
+                   "train": tr["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,

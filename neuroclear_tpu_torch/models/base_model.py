@@ -1,7 +1,7 @@
 """The save side of ``neuroclear_tpu/models/base_model.py``: one
 ``{suffix}_net_{NAME}.npz`` per network in the JAX flat format, written
 atomically (a temporary file, then a rename), so that the JAX package's
-``TestModel`` and the port's ``infer.py`` load it.  Optimizer state is not
+``TestModel`` and the port's ``test_dice`` load it.  Optimizer state is not
 saved yet (ROADMAP.md)."""
 
 from __future__ import annotations

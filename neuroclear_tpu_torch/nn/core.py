@@ -7,7 +7,10 @@ converts a JAX checkpoint's (k..., I, O) array and ``weight_to_jax`` converts
 back.  Convs outside the W-pair kernel's gate run through ``F.conv3d`` or
 ``F.conv2d`` on a channels-last view, as the JAX package leaves them to
 XLA's convolution; inside the gate, ``wconv.WConvFn`` carries the
-gradients through the hand kernels when one is needed.  On the card a
+gradients through the hand kernels when one is needed.  With
+``NEUROCLEAR_PALLAS_CONV=1``, bf16 convs outside that gate and inside
+``conv3x3.supported`` go to the dense-K conv kernel, as the JAX package
+routes them to ``pallas_conv.conv3d_3x3``.  On the card a
 float32 conv matches the JAX package only with TF32 off
 (``torch.backends.cudnn.allow_tf32 = False``), the same trap as XLA's
 DEFAULT precision (``nn/core.py:94-100``); the entry points turn it off.
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import inorm, wconv
+from ..ops import conv3x3, inorm, wconv
 
 
 def _channels_first(x: torch.Tensor) -> torch.Tensor:
@@ -35,7 +38,9 @@ class Conv(nn.Module):
     """2D or 3D conv with torch-style symmetric integer padding.  bf16 3x3x3
     convs inside ``wconv.supported`` go to the W-pair kernel (its plain
     version when ``plain``), through ``wconv.WConvFn`` when a gradient is
-    needed."""
+    needed; then, in the order of the JAX package's ``Conv.apply``, those
+    inside ``conv3x3.supported`` go to the dense-K kernel the same way,
+    through ``conv3x3.Conv3x3Fn``."""
 
     def __init__(self, in_c: int, out_c: int, k: int, stride: int = 1, pad: int = 0,
                  bias: bool = True, plain: bool = False, dim: int = 3):
@@ -59,22 +64,31 @@ class Conv(nn.Module):
         return w.permute(*range(2, w.dim()), 1, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.bfloat16 and wconv.supported(
-                x.shape, self.in_c, self.out_c, self.k, self.stride, self.pad, self.dim):
-            wt = wconv.pack_weight(self.weight.to(x.dtype))
-            bias = (self.bias if self.bias is not None
-                    else torch.zeros(self.out_c, device=x.device)).float().contiguous()
-            if torch.is_grad_enabled() and (x.requires_grad or wt.requires_grad
-                                            or bias.requires_grad):
-                return wconv.WConvFn.apply(x.contiguous(), wt, bias, self.plain)
-            fn = wconv.conv3d_plain if self.plain else wconv.conv3d
-            return fn(x.contiguous(), wt, bias)
+        if x.dtype == torch.bfloat16:
+            gate = (self.in_c, self.out_c, self.k, self.stride, self.pad, self.dim)
+            if wconv.supported(x.shape, *gate):
+                return self._hand_conv(x, wconv.WConvFn, wconv.conv3d, wconv.conv3d_plain)
+            if conv3x3.supported(x.shape, *gate):
+                return self._hand_conv(x, conv3x3.Conv3x3Fn, conv3x3.conv3d,
+                                       conv3x3.conv3d_plain)
         conv = F.conv3d if self.dim == 3 else F.conv2d
         y = _channels_last(conv(_channels_first(x), self.weight.to(x.dtype), None,
                                 self.stride, self.pad))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+    def _hand_conv(self, x, autograd_fn, kernel, plain):
+        """A hand conv on the packed weights and the f32 bias: through
+        ``autograd_fn`` when a gradient is needed, else the kernel wrapper
+        (its plain version when ``self.plain``)."""
+        wt = wconv.pack_weight(self.weight.to(x.dtype))
+        bias = (self.bias if self.bias is not None
+                else torch.zeros(self.out_c, device=x.device)).float().contiguous()
+        if torch.is_grad_enabled() and (x.requires_grad or wt.requires_grad
+                                        or bias.requires_grad):
+            return autograd_fn.apply(x.contiguous(), wt, bias, self.plain)
+        return (plain if self.plain else kernel)(x.contiguous(), wt, bias)
 
 
 class ConvTranspose(nn.Module):

@@ -4,10 +4,11 @@
 count of its kernel launches, which a run resets and reads to show that the
 main path went through the kernels.  The conv's input and weight gradients
 count apart from its forward, and the norm's backward sums apart from its
-forward statistics.
+forward statistics.  ``conv3x3`` is the dense-K conv that
+``NEUROCLEAR_PALLAS_CONV=1`` switches on.
 """
 
-from . import inorm, wconv
+from . import conv3x3, inorm, wconv
 
 KERNELS = {
     "wconv3x3x3": wconv.conv3d,
@@ -17,6 +18,7 @@ KERNELS = {
     "affine_map_act": inorm.affine_map_act,
     "pair_sums_gy": inorm.pair_sums_gy,
     "bwd_map": inorm.bwd_map,
+    "conv3x3": conv3x3.conv3d,
 }
 
 

@@ -38,9 +38,9 @@ c_ptr, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
-    "wconv": {
-        "nc_wconv3x3x3_bf16": ([c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int,
-                                c_int, c_int, c_int, c_ptr], c_int),
+    "conv3x3": {
+        "nc_conv3x3_bf16": ([c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
+                             c_int, c_ptr], c_int),
     },
     "wconv_dw": {
         "nc_wconv_dw_bf16": ([c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,

@@ -2,7 +2,8 @@
 port of ``neuroclear_tpu/ops/pallas_wconv.py``.
 
 Three wrappers, each with its own launch count, carry it on the card:
-  * ``conv3d``: the forward conv, kernel ``csrc/wconv.cu`` (replaces
+  * ``conv3d``: the forward conv, kernel ``csrc/conv3x3.cu`` (launched by
+    ``conv3x3.launch``, the port's one 3x3x3 conv kernel; replaces
     ``_kernel`` as ``_conv_pallas`` runs it);
   * ``conv3d_dx``: the input gradient, the same kernel run on the 64-channel
     cotangent with the flipped, in/out-transposed weights, so its output has
@@ -16,7 +17,8 @@ CPU tensor and launches its kernel on a CUDA tensor (bf16 only), or raises.
 ``conv3d_wpack_pallas`` carries its custom VJP.  They serve the U-Net's two
 full-resolution 64-output-channel convs, ``double_conv1.conv1`` (64 -> 64) and
 ``ex_conv1_1.conv0`` (128 -> 64), and the backward generator's ``feat1``
-(64 -> 64), inside the JAX package's shape gate.
+(64 -> 64), inside the JAX package's shape gate.  ``pack_weight`` and
+``conv3d_plain`` are the conv kernel's, from ``ops/conv3x3.py``.
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .conv3x3 import acc_dtype, check_operand, conv3d_plain, launch, pack_weight
 
 COUT = 64
-_GROUP = 64               # csrc/wconv.cu BN: output channels per block row
 _DW_TILE = 128            # csrc/wconv_dw.cu BM: (tap, c) rows per block
 _TARGET_BLOCKS = 4 * 132  # dw: about four blocks per H100 SM
 _DW_MIN_VOXELS = 2048     # dw: fewest voxels a chunk is worth
@@ -45,39 +47,11 @@ def supported(x_shape, cin: int, cout: int, k: int, stride: int, pad: int,
     return cout == COUT and cin in (64, 128)
 
 
-def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """Torch-layout weight (cout, cin, 3, 3, 3) -> the kernel's (27, cout, cin):
-    tap-major (z, y, x), input channels contiguous."""
-    cout, cin = w.shape[:2]
-    return w.permute(2, 3, 4, 0, 1).reshape(27, cout, cin).contiguous()
-
-
 def dx_weight(wt: torch.Tensor) -> torch.Tensor:
     """Packed forward weights (27, 64, cin) -> the input gradient's packed
     weights (27, cin, 64): taps flipped (tap t -> 26 - t), in and out
     swapped, as ``_bwd`` builds ``w_flip``."""
     return wt.flip(0).transpose(1, 2).contiguous()
-
-
-def _acc_dtype(t: torch.Tensor) -> torch.dtype:
-    return torch.float64 if t.dtype == torch.float64 else torch.float32
-
-
-def conv3d_plain(x: torch.Tensor, wt: torch.Tensor, bias=None) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: for each of the 27 taps, the
-    shifted input (B, D, H, W, cin) times the tap's (cin, cout) weights,
-    summed in f32 (f64 for f64 input), plus the bias, rounded once to x's
-    dtype."""
-    b, d, h, w, _ = x.shape
-    acc_t = _acc_dtype(x)
-    xp = F.pad(x.to(acc_t), (0, 0, 1, 1, 1, 1, 1, 1))
-    acc = torch.zeros((b, d, h, w, wt.shape[1]), dtype=acc_t, device=x.device)
-    for t in range(27):
-        dz, dy, dx = t // 9, (t // 3) % 3, t % 3
-        acc += xp[:, dz:dz + d, dy:dy + h, dx:dx + w, :] @ wt[t].to(acc_t).t()
-    if bias is not None:
-        acc += bias.to(acc_t)
-    return acc.to(x.dtype)
 
 
 def conv3d_dx_plain(g: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
@@ -89,7 +63,7 @@ def conv3d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dL/dw in the packed (27, 64, cin) layout, in f32 (f64 for f64 input):
     dw[t, o, c] = sum over voxels of g[., o] * x[. + shift(t), c]."""
     b, d, h, w, cin = x.shape
-    acc_t = _acc_dtype(x)
+    acc_t = acc_dtype(x)
     xp = F.pad(x.to(acc_t), (0, 0, 1, 1, 1, 1, 1, 1))
     g2 = g.to(acc_t).reshape(-1, g.shape[-1]).t()
     dw = torch.empty((27, g.shape[-1], cin), dtype=acc_t, device=x.device)
@@ -97,40 +71,6 @@ def conv3d_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         dz, dy, dx = t // 9, (t // 3) % 3, t % 3
         dw[t] = g2 @ xp[:, dz:dz + d, dy:dy + h, dx:dx + w, :].reshape(-1, cin)
     return dw
-
-
-def _check_operand(name: str, t: torch.Tensor, device, dtype) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"wconv kernels take {dtype} {name}, got {t.dtype}")
-    if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"wconv {name} must be a contiguous, 16-byte aligned "
-                         f"tensor on {device}")
-
-
-def _launch_conv(x: torch.Tensor, wt: torch.Tensor, bias) -> torch.Tensor:
-    """One launch of csrc/wconv.cu: x (B, D, H, W, cin) bf16, wt (27, cout,
-    cin) bf16 with cout a multiple of 64, bias (cout,) f32 or None."""
-    b, d, h, w, cin = x.shape
-    cout = wt.shape[1]
-    if x.dim() != 5 or cin not in (64, 128) or w % 2 or w < 4 or h < 2:
-        raise ValueError(f"wconv kernel does not take x {tuple(x.shape)}")
-    if wt.dim() != 3 or tuple(wt.shape) != (27, cout, cin) or cout % _GROUP:
-        raise ValueError(f"wconv weights {tuple(wt.shape)} do not match cin {cin}")
-    _check_operand("x", x, x.device, torch.bfloat16)
-    _check_operand("wt", wt, x.device, torch.bfloat16)
-    if bias is not None:
-        _check_operand("bias", bias, x.device, torch.float32)
-        if tuple(bias.shape) != (cout,):
-            raise ValueError(f"wconv bias {tuple(bias.shape)} does not match cout {cout}")
-    y = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16, device=x.device)
-    lib = build.load("wconv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.nc_wconv3x3x3_bf16(x.data_ptr(), wt.data_ptr(),
-                                      None if bias is None else bias.data_ptr(),
-                                      y.data_ptr(), b, d, h, w, cin, cout, stream)
-    build.check(lib, code, "wconv3x3x3 launch")
-    return y
 
 
 def conv3d(x: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -142,7 +82,7 @@ def conv3d(x: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     if not supported(x.shape, x.shape[-1], wt.shape[1], 3, 1, 1, 3):
         raise ValueError(f"wconv kernel does not take x {tuple(x.shape)}, "
                          f"weights {tuple(wt.shape)}")
-    y = _launch_conv(x, wt, bias)
+    y = launch(x, wt, bias, "wconv kernel")
     conv3d.launches += 1
     return y
 
@@ -154,12 +94,12 @@ def conv3d_dx(g: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     """dL/dx of ``conv3d``: g (B, D, H, W, 64) the cotangent, wt the forward's
     packed (27, 64, cin) weights; returns (B, D, H, W, cin) in g's dtype.  A
     CPU tensor takes ``conv3d_dx_plain``; a CUDA tensor launches the conv
-    kernel once (cin / 64 block rows) or raises."""
+    kernel once or raises."""
     if g.device.type == "cpu":
         return conv3d_dx_plain(g, wt)
     if g.shape[-1] != COUT:
         raise ValueError(f"wconv dx takes a {COUT}-channel cotangent, got {tuple(g.shape)}")
-    dx = _launch_conv(g, dx_weight(wt), None)
+    dx = launch(g, dx_weight(wt), None, "wconv dx kernel")
     conv3d_dx.launches += 1
     return dx
 
@@ -177,8 +117,10 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, d, h, w, cin = x.shape
     if x.dim() != 5 or cin % 8 or tuple(g.shape) != (b, d, h, w, COUT):
         raise ValueError(f"wconv dw does not take x {tuple(x.shape)}, g {tuple(g.shape)}")
-    _check_operand("x", x, x.device, torch.bfloat16)
-    _check_operand("g", g, x.device, torch.bfloat16)
+    check_operand("wconv dw", "x", x, x.device, torch.bfloat16)
+    check_operand("wconv dw", "g", g, x.device, torch.bfloat16)
+    if x.device.type != "cuda":
+        raise ValueError(f"wconv dw launches on a CUDA device, got a tensor on {x.device}")
     voxels = b * d * h * w
     tiles = -(-27 * cin // _DW_TILE)
     chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-voxels // _DW_MIN_VOXELS)))
@@ -220,5 +162,5 @@ class WConvFn(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = (conv3d_dw_plain if ctx.plain else conv3d_dw)(x, gy).to(wt.dtype)
         if ctx.needs_input_grad[2]:
-            db = gy.to(_acc_dtype(gy)).sum(dim=(0, 1, 2, 3))
+            db = gy.to(acc_dtype(gy)).sum(dim=(0, 1, 2, 3))
         return dx, dw, db, None

@@ -29,17 +29,32 @@ training benchmark default.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from . import resolve_device
 from .data.singlevolume_dataset import SingleVolumeDataset, check_preprocess
-from .infer import load_volume
 from .models.axial_to_lateral_gan_apollo_model import LOSS_NAMES, ApolloModel
 
 NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
+
+
+def load_volume(path: str) -> np.ndarray:
+    """The (z, y, x) volume of a ``.npy`` file, or of the one ``.npy`` file
+    in a directory."""
+    if os.path.isdir(path):
+        files = sorted(f for f in os.listdir(path) if f.endswith(".npy"))
+        if len(files) != 1:
+            raise FileNotFoundError(f"{path} must hold exactly one .npy volume, found {files}")
+        path = os.path.join(path, files[0])
+    vol = np.load(path)
+    if vol.ndim != 3:
+        raise ValueError(f"{path}: expected a (z, y, x) volume, got shape {vol.shape}")
+    return vol
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -11,7 +11,7 @@ import math
 import pytest
 import torch
 
-from neuroclear_tpu_torch.ops import inorm, wconv
+from neuroclear_tpu_torch.ops import conv3x3, inorm, wconv
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +102,45 @@ def test_wconv_autograd_function_on_the_card(dev):
         assert ((k - p).abs() <= _bf16_step_tol(p)).all()
 
 
+@pytest.mark.parametrize("shape, cin, cout", [((1, 3, 5, 7), 32, 32), ((2, 4, 3, 10), 64, 128),
+                                              ((1, 5, 7, 33), 96, 96), ((1, 2, 2, 3), 256, 64),
+                                              ((1, 6, 4, 32), 128, 128)])
+def test_conv3x3_kernel_matches_plain(dev, shape, cin, cout):
+    """The dense-K conv, every cout template, ragged voxel counts: one bf16
+    rounding of f32 sums taken in another order."""
+    g = torch.Generator(device="cpu").manual_seed(cin + cout + shape[-1])
+    x = torch.randn(*shape, cin, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(cout, cin, 3, 3, 3, generator=g) * math.sqrt(2.0 / (27 * cin))
+    b = torch.randn(cout, generator=g).to(dev)
+    wt = wconv.pack_weight(w.to(dev, torch.bfloat16))
+    before = conv3x3.conv3d.launches
+    y = conv3x3.conv3d(x, wt, b)
+    torch.cuda.synchronize()
+    assert conv3x3.conv3d.launches == before + 1 and y.shape == (*shape, cout)
+    p = conv3x3.conv3d_plain(x, wt, b).float()
+    assert ((y.float() - p).abs() <= _bf16_step_tol(p)).all()
+
+
+def test_conv3x3_autograd_function_on_the_card(dev):
+    """Conv3x3Fn through the kernel against the same Function on the plain
+    version: the forward to one bf16 step; the gradients, PyTorch's conv
+    gradients on both sides of the same operands, to one bf16 step of a sum
+    order cuDNN may choose anew."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn(1, 4, 6, 32, 64, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(128, 64, 3, 3, 3, generator=g) * 0.03).to(dev)
+    b = torch.randn(128, generator=g).to(dev)
+    gy = torch.randn(1, 4, 6, 32, 128, generator=g).to(dev, torch.bfloat16)
+    outs = []
+    for plain in (False, True):
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = conv3x3.Conv3x3Fn.apply(xr, wconv.pack_weight(wr.to(torch.bfloat16)), br, plain)
+        y.backward(gy)
+        outs.append((y.float(), xr.grad, wr.grad, br.grad))
+    for k, p in zip(outs[0], outs[1]):
+        assert ((k.float() - p.float()).abs() <= _bf16_step_tol(p.float())).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 7, 64), (2, 1000, 128), (3, 333, 256), (1, 5, 8),
                                    (1, 144, 512)])
@@ -170,3 +209,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         wconv.conv3d(x, wt, torch.zeros(64, device=dev))       # f32 input
     with pytest.raises(ValueError):
         inorm.pair_sums(torch.zeros((1, 10, 12), device=dev))  # C = 12
+    before = conv3x3.conv3d.launches
+    with pytest.raises(ValueError):                            # cout 160
+        conv3x3.conv3d(x.to(torch.bfloat16), torch.zeros((27, 160, 64), dtype=torch.bfloat16,
+                                                         device=dev))
+    assert conv3x3.conv3d.launches == before

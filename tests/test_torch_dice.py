@@ -19,10 +19,11 @@ from neuroclear_tpu.nn.core import unflatten_params
 from neuroclear_tpu.nn.generators import UNetDeconv as JaxUNetDeconv
 from neuroclear_tpu.parallel.dice_infer import DiceInferencePipeline as JaxPipeline
 from neuroclear_tpu.utils.imageops import pad_for_dicing as jax_pad_for_dicing
-from neuroclear_tpu_torch import infer
+from neuroclear_tpu_torch import test_dice
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
+from neuroclear_tpu_torch.utils import tiffio
 from neuroclear_tpu_torch.utils.imageops import pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import kaiming_flat
 
@@ -83,8 +84,10 @@ def test_pad_for_dicing_matches_jax():
 
 
 def test_infer_main_end_to_end_matches_jax(tmp_path):
-    """The entry point with a JAX-format checkpoint: the real UNetDeconv on
-    one 24^3 tile, f32, against the JAX pipeline and generator."""
+    """The inference entry point (``test_dice.main``) with a ``.npy`` volume
+    and a JAX-format checkpoint: the real UNetDeconv on one 24^3 tile, f32,
+    against the JAX pipeline and generator; the written TIFF is the volume
+    it returns."""
     rng = np.random.default_rng(21)
     vol = rng.integers(0, 65535, (8, 8, 8)).astype(np.uint16)
     data = tmp_path / "data"
@@ -95,16 +98,18 @@ def test_infer_main_end_to_end_matches_jax(tmp_path):
     ckpt.mkdir(parents=True)
     np.savez(ckpt / "iter_7_net_G_A.npz", **flat)
 
-    result = infer.main([
+    result = test_dice.main([
         "--dataroot", str(data), "--name", "exp", "--checkpoints_dir", str(tmp_path / "ckpt"),
         "--load_iter", "7", "--model_suffix", "_A", "--dice_size", "16", "16", "16",
         "--overlap", "0", "--border_cut", "4", "--tile_batch", "2", "--precision", "float32",
-        "--data_type", "uint16", "--results_dir", str(tmp_path / "res"), "--device", "cpu"])
-    out_path = result["output"]
+        "--data_type", "uint16", "--results_dir", str(tmp_path / "res"), "--save_volume",
+        "--device", "cpu"])
+    out_path = os.path.join(str(tmp_path / "res"), "exp", "test_latest_iter7", "volumes",
+                            "output_volume_xy-view_iter-7.tif")
     assert result["voxels"] == vol.size and result["seconds"] > 0
-    assert out_path == os.path.join(str(tmp_path / "res"), "exp", "test_latest_iter7",
-                                    "volumes", "output_volume_xy-view_iter-7.npy")
-    out = np.load(out_path)
+    assert result["fake_streamed"] == out_path
+    out = result["fake"]
+    assert np.array_equal(tiffio.imread(out_path), out)
 
     vp = jax_pad_for_dicing(vol, 16, 0)
     ref = JaxPipeline(JaxUNetDeconv(1, 1).apply, unflatten_params(flat),

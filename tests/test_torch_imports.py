@@ -1,8 +1,8 @@
 """The port stands alone: ``neuroclear_tpu_torch`` (every module),
-``chip_smoke`` and ``chip_smoke_faults`` import with ``jax``, ``PIL`` and
-``neuroclear_tpu`` blocked, as on a torch-only machine with the card; and the
-entry point refuses to run when CUDA is absent and the CPU was not asked
-for."""
+``chip_smoke`` and ``chip_smoke_faults`` import with ``jax``, ``PIL``,
+``tifffile`` and ``neuroclear_tpu`` blocked, as on a torch-only machine with
+the card; and the entry points refuse to run when CUDA is absent and the CPU
+was not asked for."""
 
 import os
 import subprocess
@@ -16,7 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKER = """
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "PIL", "neuroclear_tpu")
+BLOCKED = ("jax", "jaxlib", "PIL", "tifffile", "neuroclear_tpu")
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -49,22 +49,24 @@ def test_port_and_chip_smoke_import_without_jax():
     """)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 14, proc.stdout
+    assert n >= 21, proc.stdout
 
 
 def test_infer_main_refuses_without_cuda(tmp_path):
+    """The inference entry point, ``test_dice.main``."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the refusal needs a machine without one")
     missing = tmp_path / "does_not_exist.npy"
     proc = _run(f"""
-        from neuroclear_tpu_torch import infer
+        from neuroclear_tpu_torch import test_dice
         try:
-            infer.main(["--dataroot", {str(missing)!r}, "--results_dir", {str(tmp_path)!r}])
+            test_dice.main(["--dataroot", {str(missing)!r}, "--results_dir", {str(tmp_path)!r},
+                            "--dice_size", "16"])
         except RuntimeError as e:
             assert "CUDA" in str(e), e
             print("refused")
         else:
-            raise SystemExit("infer.main ran without a CUDA device")
+            raise SystemExit("main ran without a CUDA device")
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "refused"

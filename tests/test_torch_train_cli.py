@@ -15,7 +15,7 @@ import torch
 from neuroclear_tpu.nn.core import unflatten_params
 from neuroclear_tpu.nn.generators import UNetDeconv as JaxUNetDeconv
 from neuroclear_tpu.ops.augment import sample_rotated_crop
-from neuroclear_tpu_torch import infer, train_onecube
+from neuroclear_tpu_torch import test_dice, train_onecube
 from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import LOSS_NAMES, MODEL_NAMES
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
@@ -76,12 +76,12 @@ def test_checkpoint_runs_in_jax_and_in_the_port(trained):
     with torch.no_grad():
         y = net(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
-    out = infer.main(["--dataroot", str(tmp / "data"), "--name", "cli",
-                      "--checkpoints_dir", str(tmp / "ckpt"), "--load_iter", "2",
-                      "--model_suffix", "_A", "--dice_size", "24", "24", "24",
-                      "--overlap", "4", "--border_cut", "2", "--precision", "float32",
-                      "--results_dir", str(tmp / "results"), "--device", "cpu"])
-    written = np.load(out["output"])
+    out = test_dice.main(["--dataroot", str(tmp / "data"), "--name", "cli",
+                          "--checkpoints_dir", str(tmp / "ckpt"), "--load_iter", "2",
+                          "--model_suffix", "_A", "--dice_size", "24", "24", "24",
+                          "--overlap", "4", "--border_cut", "2", "--precision", "float32",
+                          "--results_dir", str(tmp / "results"), "--device", "cpu"])
+    written = out["fake"]
     assert written.shape == vol.shape and written.dtype == np.uint16 and written.std() > 0
 
 
