@@ -5,7 +5,9 @@
 
 Phases, each printed with its name, seconds and result:
   1. environment: torch/CUDA versions and the card (exits nonzero without one);
-  2. build: every CUDA kernel from ops/csrc with nvcc (sm_90a);
+  2. build: every CUDA kernel from ops/csrc with nvcc (sm_90a), each
+     library's registers, shared memory and spills (ptxas) and its wgmma
+     count in SASS (``HGMMA``; fails if the two wgmma kernels have none);
   3. kernels: each inference kernel against its plain PyTorch version on the
      card, in bf16 at the shapes one 2 x 140^3 tile batch of the inference
      path gives it (the dense-K conv at the four half-resolution 128-output
@@ -14,7 +16,8 @@ Phases, each printed with its name, seconds and result:
      is one, and its bound at the H100's published peaks;
   4. kernels (training): the same for the training step's kernels at the
      shapes one 108^3 Apollo step gives them: the conv's input gradient
-     (64 -> 64 and 64 -> 128) and weight gradient (cin 64 and 128), the
+     (64 -> 64 and 64 -> 128) and weight gradient (cin 64 and 128, run
+     twice and required bitwise equal), the
      norm's backward sums and map and the forward map with the
      pre-activation kept, at the generator's and the discriminators' shapes;
   5. slice: ``neuroclear_tpu_torch.test_dice.main`` on a synthetic 260^3
@@ -83,6 +86,7 @@ from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import kaiming_flat, params_from_numpy
 
 BUDGET_S = 600
+WGMMA_SOURCES = ("conv3x3", "wconv_dw")  # the kernels built on wgmma and TMA
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -242,9 +246,10 @@ def within_bf16_ulp(k: torch.Tensor, p: torch.Tensor) -> bool:
     return bool(((k - p).abs() <= torch.where(m > 0, step, torch.zeros_like(m))).all())
 
 
-def check_conv(gen, dev, mod, shapes) -> dict:
+def check_conv(gen, dev, mod, shapes, timed=True) -> dict:
     """A conv kernel wrapper (``wconv`` or ``conv3x3``) vs its plain version
-    and cuDNN's f32 conv at the path's shapes, summed over one tile batch."""
+    and cuDNN's f32 conv at the path's shapes, summed over one tile batch
+    (``timed=False``: the checks alone)."""
     name = mod.__name__.rsplit(".", 1)[-1]
     tot = _tot()
     for shape, cout in shapes:
@@ -271,6 +276,8 @@ def check_conv(gen, dev, mod, shapes) -> dict:
         if not bool(((y.float() - ref32).abs() <= tol).all()):
             raise AssertionError(f"{name} {shape}->{cout}: off F.conv3d in f32")
         del ref32, tol
+        if not timed:
+            continue
         bias16 = bias.to(torch.bfloat16)
         ms = cuda_ms(lambda: mod.conv3d(x, wt, bias), 5)
         plain = cuda_ms(lambda: mod.conv3d_plain(x, wt, bias), 1)
@@ -384,9 +391,10 @@ def _add(tot: dict, mult: int, err: float, **vals) -> None:
     tot["err"] = max(tot["err"], err)
 
 
-def check_train_conv(gen, dev) -> tuple[dict, dict]:
+def check_train_conv(gen, dev, timed=True) -> tuple[dict, dict]:
     """The conv's input and weight gradients at one 108^3 training step's
-    shapes, against their plain versions and cuDNN's f32 gradients."""
+    shapes, against their plain versions and cuDNN's f32 gradients
+    (``timed=False``: the checks alone)."""
     dx_tot, dw_tot = _tot(), _tot()
     m = CROP ** 3
     for cin, mult in TRAIN_CONV:
@@ -409,15 +417,17 @@ def check_train_conv(gen, dev) -> tuple[dict, dict]:
         if not bool(((dx.float() - ref32.permute(0, 2, 3, 4, 1)).abs() <= tol).all()):
             raise AssertionError(f"wconv dx cin {cin}: off cuDNN's f32 input gradient")
         del p, tol, ref32
-        ms = cuda_ms(lambda: wconv.conv3d_dx(g, wt), 5)
-        plain = cuda_ms(lambda: wconv.conv3d_dx_plain(g, wt), 1)
-        lib = cuda_ms(lambda: torch.nn.grad.conv3d_input(x_cl.shape, wgt, g_cl, padding=1), 5)
         flops = 2.0 * m * 64 * 27 * cin
-        tb, to = bound_ms(m * 64 * 2 + 27 * cin * 64 * 2 + m * cin * 2, flops, PEAK_BF16_FLOPS)
-        log(f"  wconv dx (1,{CROP}^3,64)->{cin}: max_abs_err {err_dx:.4g}  kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain:.3f} ms  conv3d_input {lib:.3f} ms  "
-            f"bound {max(tb, to):.3f} ms")
-        _add(dx_tot, mult, err_dx, ms=ms, plain_ms=plain, library_ms=lib, tb=tb, to=to)
+        if timed:
+            ms = cuda_ms(lambda: wconv.conv3d_dx(g, wt), 5)
+            plain = cuda_ms(lambda: wconv.conv3d_dx_plain(g, wt), 1)
+            lib = cuda_ms(lambda: torch.nn.grad.conv3d_input(x_cl.shape, wgt, g_cl, padding=1), 5)
+            tb, to = bound_ms(m * 64 * 2 + 27 * cin * 64 * 2 + m * cin * 2, flops,
+                              PEAK_BF16_FLOPS)
+            log(f"  wconv dx (1,{CROP}^3,64)->{cin}: max_abs_err {err_dx:.4g}  kernel {ms:.3f} "
+                f"ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain:.3f} ms  conv3d_input "
+                f"{lib:.3f} ms  bound {max(tb, to):.3f} ms")
+            _add(dx_tot, mult, err_dx, ms=ms, plain_ms=plain, library_ms=lib, tb=tb, to=to)
         del dx
 
         dw = wconv.conv3d_dw(x, g)
@@ -432,20 +442,26 @@ def check_train_conv(gen, dev) -> tuple[dict, dict]:
         ref32 = torch.nn.grad.conv3d_weight(x_cl.float(), wgt.shape, g_cl.float(), padding=1)
         if not bool(((dw - wconv.pack_weight(ref32)).abs() <= 1e-4 * mag).all()):
             raise AssertionError(f"wconv dw cin {cin}: off cuDNN's f32 weight gradient")
+        # the split-K sums are combined in a fixed order: the same bits every run
+        if not torch.equal(dw, wconv.conv3d_dw(x, g)):
+            raise AssertionError(f"wconv dw cin {cin}: two runs on the same inputs differ")
         del p, mag, ref32
-        ms = cuda_ms(lambda: wconv.conv3d_dw(x, g), 5)
-        plain = cuda_ms(lambda: wconv.conv3d_dw_plain(x, g), 1)
-        lib = cuda_ms(lambda: torch.nn.grad.conv3d_weight(x_cl, wgt.shape, g_cl, padding=1), 5)
-        tb, to = bound_ms(m * cin * 2 + m * 64 * 2 + 27 * cin * 64 * 4, flops, PEAK_BF16_FLOPS)
-        log(f"  wconv dw (1,{CROP}^3,{cin}) x (1,{CROP}^3,64): max_abs_err {err_dw:.4g} (of "
-            f"|dw| up to {dw.abs().max().item():.4g})  kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain:.3f} ms  conv3d_weight {lib:.3f} ms  "
-            f"bound {max(tb, to):.3f} ms")
-        _add(dw_tot, mult, err_dw, ms=ms, plain_ms=plain, library_ms=lib, tb=tb, to=to)
-        # and the forward at this step's shapes (its row keeps the inference batch)
-        bias = torch.zeros(64, device=dev)
-        fwd = cuda_ms(lambda: wconv.conv3d(x, wt, bias), 5)
-        log(f"  wconv forward (1,{CROP}^3,{cin})->64: kernel {fwd:.3f} ms")
+        if timed:
+            ms = cuda_ms(lambda: wconv.conv3d_dw(x, g), 5)
+            plain = cuda_ms(lambda: wconv.conv3d_dw_plain(x, g), 1)
+            lib = cuda_ms(lambda: torch.nn.grad.conv3d_weight(x_cl, wgt.shape, g_cl, padding=1),
+                          5)
+            tb, to = bound_ms(m * cin * 2 + m * 64 * 2 + 27 * cin * 64 * 4, flops,
+                              PEAK_BF16_FLOPS)
+            log(f"  wconv dw (1,{CROP}^3,{cin}) x (1,{CROP}^3,64): max_abs_err {err_dw:.4g} (of "
+                f"|dw| up to {dw.abs().max().item():.4g})  kernel {ms:.3f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain:.3f} ms  conv3d_weight "
+                f"{lib:.3f} ms  bound {max(tb, to):.3f} ms")
+            _add(dw_tot, mult, err_dw, ms=ms, plain_ms=plain, library_ms=lib, tb=tb, to=to)
+            # and the forward at this step's shapes (its row keeps the inference batch)
+            bias = torch.zeros(64, device=dev)
+            fwd = cuda_ms(lambda: wconv.conv3d(x, wt, bias), 5)
+            log(f"  wconv forward (1,{CROP}^3,{cin})->64: kernel {fwd:.3f} ms")
         del x, g, x_cl, g_cl, dw
         torch.cuda.empty_cache()
     return dx_tot, dw_tot
@@ -948,8 +964,13 @@ def main(argv=None) -> int:
         for name in secs:
             build.load(name)
         regs = [ln.strip() for name in secs for ln in build.ptxas_report(name).splitlines()
-                if "registers" in ln]
-        ph.result = f"nvcc sm_90a {secs}; " + " | ".join(regs)
+                if "registers" in ln or "spill" in ln or "C7515" in ln]
+        hgmma = {name: build.sass_wgmma_count(name) for name in secs}
+        missing = [name for name in WGMMA_SOURCES if not hgmma.get(name)]
+        if missing:
+            raise AssertionError(f"no HGMMA (wgmma) instruction in the SASS of {missing}")
+        ph.result = (f"nvcc sm_90a {secs}; HGMMA instructions in SASS {hgmma}; "
+                     + " | ".join(regs))
 
     with Phase("kernels") as ph:
         conv = check_conv(gen, dev, wconv, CONV_SHAPES)

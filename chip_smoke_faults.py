@@ -6,10 +6,12 @@
 Runs the smoke's three-way step (``step_three_ways``: kernels in bf16, plain
 versions in bf16 and in f32, 108^3, identical weights, crop and draws) once
 as it is and once per fault, where a faulty wrapper stands in for one
-backward kernel in the kernel step only, and judges each with the smoke's own
-``judge_step``.  It prints, per run, the gradient errors against f32, the
-largest tensor errors against the plain bf16 step and the failures, and
-exits nonzero unless the run as it is passes and every fault fails.
+kernel in the kernel step only, and judges each with the smoke's own
+``judge_step``; then the smoke's untimed conv kernel checks (``check_conv``
+on the W-pair forward, ``check_train_conv``) with the same wrapper in place.
+It prints, per run, the gradient errors against f32, the largest tensor
+errors against the plain bf16 step and the failures of each check, and exits
+nonzero unless the run as it is passes both and every fault fails one.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import sys
 import torch
 
 import chip_smoke as cs
-from neuroclear_tpu_torch.ops import inorm, wconv
+from neuroclear_tpu_torch.ops import conv3x3, inorm, wconv
 
 
 def _dx_zero_on_call(n):
@@ -46,6 +48,36 @@ def _dw_centre_tap_zeroed(f):
     return fn
 
 
+def _fwd_last_stage_dropped(f):
+    """The forward conv without its last channel stage (the kernel's last 64
+    input channels, or 32 where cin is an odd multiple of 32) at cin 128,
+    ex_conv1_1.conv0: the weights of those channels zeroed."""
+    def fn(x, wt, bias):
+        cin = wt.shape[2]
+        if cin < 128:
+            return f(x, wt, bias)
+        kc = conv3x3.conv_plan(x.shape, cin, wt.shape[1]).kc
+        wt = wt.clone()
+        wt[:, :, cin - kc:] = 0
+        return f(x, wt, bias)
+    return fn
+
+
+def _dw_last_box_of_each_chunk_skipped(f):
+    """dw without the last voxel box of each chunk of its plan: g zeroed
+    there, so those voxels add nothing."""
+    def fn(x, g):
+        plan = wconv.dw_plan(x.shape, x.shape[-1])
+        (bz, by, bx), (nz, ny, nx) = plan.box, plan.counts
+        g = g.clone()
+        for k in range(plan.chunks):
+            i = plan.chunk_boxes(k)[-1]
+            ix, iy, iz, ib = i % nx, i // nx % ny, i // (nx * ny) % nz, i // (nx * ny * nz)
+            g[ib, iz * bz:(iz + 1) * bz, iy * by:(iy + 1) * by, ix * bx:(ix + 1) * bx] = 0
+        return f(x, g)
+    return fn
+
+
 FAULTS = [
     ("dx zeroed", wconv, "conv3d_dx", lambda f: lambda g, wt: torch.zeros_like(f(g, wt))),
     ("dx zeroed at G_A double_conv1.conv1", wconv, "conv3d_dx", _dx_zero_on_call(3)),
@@ -57,19 +89,42 @@ FAULTS = [
      lambda f: lambda g3, y3, rstd, mg, mgy, act: f(g3, y3, rstd, mg, torch.zeros_like(mgy), act)),
     ("pair_sums_gy without the activation's derivative", inorm, "pair_sums_gy",
      lambda f: lambda g3, y3, act=None: f(g3, y3, None)),
+    ("forward conv without its last channel stage at cin 128", wconv, "conv3d",
+     _fwd_last_stage_dropped),
+    ("dw without the last voxel box of each chunk", wconv, "conv3d_dw",
+     _dw_last_box_of_each_chunk_skipped),
 ]
+
+
+def kernel_checks(dev, seed) -> list:
+    """The smoke's conv kernel checks (the kernels phases' W-pair forward at
+    the tile batch's shapes, dx and dw at the 108^3 step's), untimed: the
+    failures they raise."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bad = []
+    for check in (lambda: cs.check_conv(gen, dev, wconv, cs.CONV_SHAPES, timed=False),
+                  lambda: cs.check_train_conv(gen, dev, timed=False)):
+        try:
+            check()
+        except AssertionError as e:
+            bad.append(f"kernel check: {e}")
+        torch.cuda.empty_cache()
+    return bad
 
 
 def run(label, seed, vol, dev) -> int:
     runs = cs.step_three_ways(seed, vol, dev)
     bad, stats = cs.judge_step(runs)
-    cs.log(f"== {label}: {len(bad)} failures")
+    step_bad = len(bad)
+    bad += kernel_checks(dev, seed)
+    cs.log(f"== {label}: {len(bad)} failures ({step_bad} of the step check, "
+           f"{len(bad) - step_bad} of the kernel checks)")
     cs.log("   relative L2 against f32 (kernels / plain bf16): " + ", ".join(
         f"{g} {ek:.4g} / {ep:.4g}" for g, (ek, ep) in stats["pooled"].items()))
     for g, top in stats["direct"].items():
         cs.log(f"   against the plain bf16 step, {g}: "
                + ", ".join(f"{d:.4g} ({k})" for d, k in top))
-    for b in bad[:4]:
+    for b in bad[:4] + bad[step_bad:][:2]:
         cs.log(f"   {b}")
     return len(bad)
 

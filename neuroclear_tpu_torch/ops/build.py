@@ -1,10 +1,14 @@
 """Build the CUDA kernels of ``ops/csrc`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
-compiled for Hopper (``sm_90a``) into ``neuroclear_tpu_torch/_build/`` (listed
-in ``.gitignore``) under a name that carries a hash of the sources and flags,
-so a changed source rebuilds and an unchanged one is loaded as it is.  No
-PyTorch header is compiled, so ``ninja`` is not needed and a build takes
+compiled for Hopper (``sm_90a``: ``wgmma`` exists only there) into
+``neuroclear_tpu_torch/_build/`` (listed in ``.gitignore``) under a name that
+carries a hash of the sources, the shared headers (``csrc/*.cuh``) and the
+flags, so a changed source rebuilds and an unchanged one is loaded as it is.
+The kernels' TMA tensor maps are encoded with the CUDA driver API's
+``cuTensorMapEncodeTiled``, fetched through the runtime's
+``cudaGetDriverEntryPoint``, so nothing links ``libcuda``.  No PyTorch or
+CUTLASS header is compiled, so ``ninja`` is not needed and a build takes
 seconds.  Every pointer and the stream cross the boundary as ``c_void_p``;
 each entry point returns a ``cudaError_t`` that the wrappers turn into an
 exception.
@@ -40,11 +44,11 @@ c_ptr, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "conv3x3": {
         "nc_conv3x3_bf16": ([c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
-                             c_int, c_ptr], c_int),
+                             c_int, c_int, c_int, c_int, c_int, c_ptr], c_int),
     },
     "wconv_dw": {
         "nc_wconv_dw_bf16": ([c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
-                              c_int, c_int, c_ptr], c_int),
+                              c_int, c_int, c_int, c_int, c_int, c_int, c_ptr], c_int),
     },
     "inorm": {
         "nc_pair_sums": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int, c_int, c_int,
@@ -76,6 +80,8 @@ def nvcc_path() -> str:
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -135,6 +141,15 @@ def build_all(names=None) -> dict[str, float]:
 def ptxas_report(name: str) -> str:
     log = _library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass_wgmma_count(name: str) -> int:
+    """The number of ``HGMMA`` (wgmma) instructions in the built library's
+    SASS, by ``cuobjdump -sass`` beside ``nvcc``."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(_library_path(name))], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    return sum("HGMMA" in ln for ln in out.splitlines())
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,6 +5,10 @@ dense-K conv the JAX package keeps behind ``NEUROCLEAR_PALLAS_CONV=1``.
 ``csrc/conv3x3.cu`` is the port's one hand-written 3x3x3 conv kernel:
 ``launch`` runs it once, and the W-pair conv's forward and input gradient
 (``ops/wconv.py``) launch it too, each wrapper with its own launch count.
+``conv_plan`` is its host-side tiling (the output box of a block, the grid,
+the channels per pipeline stage), in plain Python so that the CPU tests
+check it; ``box_counts`` serves the weight gradient's plan
+(``ops/wconv.py``) too.
 ``pack_weight`` gives the (27, cout, cin) layout it takes and
 ``conv3d_plain`` its arithmetic in PyTorch.
 
@@ -26,6 +30,7 @@ convs too, which is the same function.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +38,53 @@ import torch.nn.functional as F
 from . import build
 
 _COUTS = (32, 64, 96, 128)  # csrc/conv3x3.cu: one template per cout
+
+# TMA's limits on a tiled box: at most 256 elements per dimension, the
+# innermost extent a multiple of 16 bytes and, under a swizzle, at most the
+# swizzle's span
+TMA_BOX_MAX = 256
+# csrc/conv3x3.cu: the output box (z, y, x) of a block, by cout: two z-planes
+# of 28 x 8 (one per warpgroup) up to 64, one 14 x 8 plane (its two 64-row
+# tiles of cout split between the warpgroups) above
+CONV_BOXES = {False: (2, 28, 8), True: (1, 14, 8)}
+CONV_KC = 32  # csrc/conv3x3.cu: input channels per pipeline stage
+
+
+def box_counts(d: int, h: int, w: int, box) -> tuple[int, int, int]:
+    """Boxes along z, y and x that cover a (d, h, w) volume."""
+    bz, by, bx = box
+    return -(-d // bz), -(-h // by), -(-w // bx)
+
+
+class ConvPlan(NamedTuple):
+    """How csrc/conv3x3.cu tiles one conv: ``kc`` input channels per pipeline
+    stage, the output ``box`` (bz, by, bx) of one block (``CONV_BOXES``), the
+    box counts along (z, y, x), and the grid (one block per box and batch
+    entry).  A stage loads the box with a one-voxel halo, one TMA load per
+    8-channel chunk (16-byte rows, no swizzle), and each tap's weights, cout
+    padded to 64 or 128 rows, under the 64-byte swizzle."""
+    kc: int
+    box: tuple[int, int, int]
+    counts: tuple[int, int, int]
+    grid: int
+    swizzle_bytes: int = 2 * CONV_KC  # the weights' rows
+
+    def tma_boxes(self, cout: int) -> list[tuple[int, ...]]:
+        """The two TMA boxes, innermost first: a chunk of the haloed input
+        (8, bx + 2, by + 2, bz + 2, 1) and a tap's weights (kc, cout padded
+        to a multiple of 64)."""
+        bz, by, bx = self.box
+        return [(8, bx + 2, by + 2, bz + 2, 1), (self.kc, -(-cout // 64) * 64)]
+
+
+def conv_plan(shape, cin: int, cout: int) -> ConvPlan:
+    """The plan for x of shape (B, D, H, W, ...) with ``cin`` channels, a
+    multiple of 32, and ``cout`` outputs: the kernel's box and stage width,
+    and the grid."""
+    b, d, h, w = shape[:4]
+    box = CONV_BOXES[cout > 64]
+    counts = box_counts(d, h, w, box)
+    return ConvPlan(CONV_KC, box, counts, b * counts[0] * counts[1] * counts[2])
 
 
 def enabled() -> bool:
@@ -88,7 +140,7 @@ def conv3d_plain(x: torch.Tensor, wt: torch.Tensor, bias=None) -> torch.Tensor:
 
 def check_operand(kernel: str, name: str, t: torch.Tensor, device, dtype) -> None:
     """Raise unless t is a contiguous, 16-byte aligned ``dtype`` tensor on
-    ``device``."""
+    ``device`` (TMA reads from 16-byte aligned addresses only)."""
     if t.dtype != dtype:
         raise TypeError(f"{kernel} takes {dtype} {name}, got {t.dtype}")
     if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
@@ -115,13 +167,15 @@ def launch(x: torch.Tensor, wt: torch.Tensor, bias, what: str) -> torch.Tensor:
             raise ValueError(f"{what} bias {tuple(bias.shape)} does not match cout {cout}")
     if x.device.type != "cuda":
         raise ValueError(f"{what} launches on a CUDA device, got a tensor on {x.device}")
+    plan = conv_plan(x.shape, cin, cout)
     y = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16, device=x.device)
     lib = build.load("conv3x3")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.nc_conv3x3_bf16(x.data_ptr(), wt.data_ptr(),
                                    None if bias is None else bias.data_ptr(),
-                                   y.data_ptr(), b, d, h, w, cin, cout, stream)
+                                   y.data_ptr(), b, d, h, w, cin, cout, plan.kc, *plan.box,
+                                   stream)
     build.check(lib, code, f"{what} launch")
     return y
 

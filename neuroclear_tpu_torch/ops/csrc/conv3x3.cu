@@ -17,239 +17,278 @@
 // The VMEM strip and the lane packing are TPU devices and are not carried
 // over: here the conv is an implicit GEMM
 //   out[m, n] = bias[n] + sum_{tap, c} x[m + shift(tap), c] * wt[tap, n, c]
-// with M = B*D*H*W output voxels, N = cout, K = 27*cin, taps outside the
-// volume read as zero, and the im2col rows are gathered stage by stage
-// straight into shared memory.
+// with M = output voxels, N = cout, K = 27*cin, and taps outside the volume
+// reading zero.
 //
 // Bound on the H100: 2 * 27 * cin * cout FLOP per voxel against
 // 2 * (cin + cout) bytes moved: at the path's shapes (cin 64-256, cout
 // 64-128) 580-2300 FLOP/byte, far above the card's ~295 bf16 FLOP/byte
-// ridge, so the tensor cores bound it.  The design keeps them fed from
-// on-chip copies:
-//   * a block owns BM = 128 consecutive output voxels and ALL of cout (at
-//     most 128), so each gathered input tile is read once; its K loop walks
-//     (tap, 32-channel chunk) stages;
-//   * each stage's A tile (128 voxel rows x 32 channels, one 16-byte
-//     cp.async per thread and row segment, zero-filled where the tap leaves
-//     the volume) and B tile (cout x 32 weights) land in shared memory
-//     through a 3-deep cp.async ring (dynamic shared memory, 61 KB at cout
-//     128), so the next stages' loads overlap the current stage's math;
-//   * four warps each compute a 32 x cout sub-tile with mma.sync m16n8k16
-//     bf16 -> f32 fragments; rows are padded to 40 elements so the 32-bit
-//     fragment loads hit 32 distinct banks.
-// TMA, wgmma and warp specialisation are not used yet.
+// ridge, so the tensor cores bound it, as far as shared memory feeds them: a
+// wgmma m64nNk16 with both operands in shared memory reads 2 (64 + N) * 16
+// bytes for 2 * 64 * N * 16 FLOP, so its N should be large.  Here the
+// GEMM's M is cout (the weights are wgmma's A) and its N the output voxels:
+//   * a block owns a box of 2 x 28 x 8 (cout 32 or 64) or 1 x 14 x 8 (cout
+//     96 or 128) output voxels in (z, y, x), and all of cout, padded to 64
+//     or 128 (the padded rows are computed and dropped); two consumer
+//     warpgroups each run wgmma m64n224k16 (m64n112k16) over one z-plane of
+//     the box for one 64-row tile of cout, and one producer warp issues
+//     every load;
+//   * the K loop walks 32-channel stages of cin, and within a stage the 27
+//     taps.  A stage's input tile is the haloed box, 4 x 30 x 10 (3 x 16 x 10)
+//     voxels of 32 channels, loaded by four TMA tiled loads of the 5-D (B,
+//     D, H, W, cin) tensor (an 8-channel box each) into wgmma's interleaved
+//     K-major layout: for each 8-channel chunk, the voxels' 16-byte rows in
+//     (z, y, x) order.  TMA fills coordinates outside the tensor, negative
+//     ones included, with zeros: that fill is the SAME padding, and no
+//     thread computes an address or a mask;
+//   * a tap's B operand is a view into that tile: 8 consecutive x form a
+//     core matrix, the y of a plane step by one halo row (160 bytes), the
+//     two chunks of a k16 step by one chunk, and the tap's shift moves the
+//     view's start by whole voxels.  Its A operand is the tap's (cout, 32)
+//     slice of the (27 * cout, cin) weights, one 2-D TMA load into the
+//     64-byte-swizzled K-major layout, through a ring of 6-8 stages (two
+//     input stages alternate beside it);
+//   * f32 accumulators in registers (112 or 56 a thread), one tap's MMAs left in
+//     flight while the next tap's are issued; full and empty mbarriers per
+//     stage of each ring;
+//   * the epilogue adds the f32 bias, rounds once to bf16, gathers the
+//     block's outputs in shared memory and stores those of the voxels that
+//     lie inside the volume in 16-byte pieces.
+// The input is loaded once per channel stage for all 27 taps.  At cout 96
+// and 128 two blocks share an SM (~110 KB of shared memory each), so one
+// block's ring fill and epilogue overlap the other's MMAs; at cout 32 and
+// 64 one block (~183 KB) runs the wider N, which measured faster.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;       // output voxels per block
-constexpr int BK = 32;        // input channels of one tap per stage
-constexpr int LDS = BK + 8;   // padded shared-memory row, in elements
-constexpr int STAGES = 3;
-constexpr int THREADS = 128;  // four warps, each 32 voxel rows x all of cout
+constexpr int BX = 8;                 // x extent of the output box: one core matrix
+constexpr int HX = BX + 2;
+constexpr int KC = 32;                // input channels per stage
+constexpr int CONSUMERS = 2;          // warpgroups
+constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int TAPS = 27;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // a source size of 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// MT 64-row tiles of cout: MT = 1 gives the block two z-planes of 28 x 8
+// voxels (one per warpgroup, 112 accumulators a thread, one block per SM),
+// MT = 2 one plane of 14 x 8 and one cout tile per warpgroup (56
+// accumulators, two blocks per SM).  28 and 14 divide the 140^3 and 70^3
+// tiles of inference.
 template <int COUT>
-constexpr int smem_bytes() {
-  return STAGES * (BM + COUT) * LDS * static_cast<int>(sizeof(__nv_bfloat16));
-}
+struct Plan {
+  static constexpr int MT = COUT > 64 ? 2 : 1;
+  static constexpr int BLOCKS_PER_SM = MT;
+  static constexpr int SMEM_BUDGET = MT == 1 ? 216 * 1024 : 108 * 1024;
+  static constexpr int BZ = 2 / MT;
+  static constexpr int BY = MT == 1 ? 28 : 14;
+  static constexpr int HY = BY + 2;
+  static constexpr int N = BY * BX;                            // the wgmma N: one plane
+  static constexpr int NV = (BZ + 2) * HY * HX;                // haloed voxels
+  static constexpr int CHUNK_BYTES = (NV * 16 + 127) / 128 * 128;  // 8 channels of them
+  static constexpr int A_BYTES = CHUNK_BYTES * (KC / 8);        // one input stage
+  static constexpr int W_BYTES = 64 * MT * KC * 2;              // one tap's weights
+  static constexpr int W_OFFSET = (2 * A_BYTES + 1023) / 1024 * 1024;
+  static constexpr int W_FIT = (SMEM_BUDGET - W_OFFSET) / W_BYTES;
+  static constexpr int STAGES = W_FIT > 8 ? 8 : W_FIT;         // weight stages
+  // the rings, 1024-byte alignment slack, then the barriers
+  static constexpr int SMEM = W_OFFSET + STAGES * W_BYTES + 1024 + (2 + STAGES) * 2 * 8;
+  static_assert(STAGES >= 2, "weight ring");
+};
 
-// x: (B, D, H, W, cin) bf16; wt: (27, COUT, cin) bf16, tap-major, channel
-// contiguous; bias: (COUT,) f32 or null; y: (B, D, H, W, COUT) bf16.
+// xmap: (B, D, H, W, cin) bf16, box (1, BZ + 2, BY + 2, HX, 8), no swizzle;
+// wmap: (27 * COUT, cin) bf16, box (64 MT, KC), 64-byte swizzle; bias:
+// (COUT,) f32 or null; y: (B, D, H, W, COUT) bf16.  Blocks walk the boxes x
+// fastest, then y, z and the batch.
 template <int COUT>
-__global__ void __launch_bounds__(THREADS)
-conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
+__global__ void __launch_bounds__(THREADS, Plan<COUT>::BLOCKS_PER_SM)
+conv3x3_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int D, int H,
-               int W, int cin, long long M) {
-  constexpr int NT = COUT / 8;     // n8 fragment columns per warp
-  constexpr int BROWS = COUT / 32;  // B rows each thread copies per stage
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [STAGES][BM * LDS]
-  __nv_bfloat16* Bs = As + STAGES * BM * LDS;                       // [STAGES][COUT * LDS]
+               int W, int cin, int nbz, int nby, int nbx) {
+  using P = Plan<COUT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* wring = smem + P::W_OFFSET;
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(wring + P::STAGES * P::W_BYTES);
+  uint64_t* a_empty = a_full + 2;
+  uint64_t* w_full = a_empty + 2;
+  uint64_t* w_empty = w_full + P::STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int group = lane >> 2;  // fragment row (A, C) or column (B)
-  const int tig = lane & 3;     // thread in group
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  int id = blockIdx.x;
+  const int x0 = (id % nbx) * BX;
+  id /= nbx;
+  const int y0 = (id % nby) * P::BY;
+  id /= nby;
+  const int z0 = (id % nbz) * P::BZ;
+  const int b = id / nbz;
 
-  // Each thread copies one 16-byte segment (8 channels) of four A rows and
-  // COUT / 32 B rows per stage; the rows stay fixed across stages, so their
-  // coordinates are decoded once.
-  const int seg = tid & 3;
-  int rz[4], ry[4], rx[4];
-  long long rm[4];
-  bool rvalid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + (tid >> 2) + 32 * i;
-    rvalid[i] = m < M;
-    rm[i] = m;
-    long long t = m;
-    rx[i] = static_cast<int>(t % W);
-    t /= W;
-    ry[i] = static_cast<int>(t % H);
-    t /= H;
-    rz[i] = static_cast<int>(t % D);
-  }
-
-  const int chunks = cin / BK;
-  const int nk = 27 * chunks;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int tap = kt / chunks;
-    const int c0 = (kt - tap * chunks) * BK + seg * 8;
-    const int dz = tap / 9 - 1;
-    const int dy = (tap / 3) % 3 - 1;
-    const int dx = tap % 3 - 1;
-    const long long shift = (static_cast<long long>(dz) * H + dy) * W + dx;
-    __nv_bfloat16* as = As + stage * BM * LDS;
-    __nv_bfloat16* bs = Bs + stage * COUT * LDS;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int zz = rz[i] + dz, yy = ry[i] + dy, xx = rx[i] + dx;
-      const bool ok = rvalid[i] && zz >= 0 && zz < D && yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const __nv_bfloat16* src = ok ? x + (rm[i] + shift) * cin + c0 : x;
-      cp_async16(as + ((tid >> 2) + 32 * i) * LDS + seg * 8, src, ok);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&a_full[s], 1);
+      hopper::mbar_init(&a_empty[s], CONSUMERS * 4);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int j = 0; j < BROWS; ++j) {
-      const int n = (tid >> 2) + 32 * j;
-      const __nv_bfloat16* src = wt + (static_cast<long long>(tap) * COUT + n) * cin + c0;
-      cp_async16(bs + n * LDS + seg * 8, src, true);
+    for (int s = 0; s < P::STAGES; ++s) {
+      hopper::mbar_init(&w_full[s], 1);
+      hopper::mbar_init(&w_empty[s], CONSUMERS * 4);
     }
-  };
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt has landed, and every warp is done with kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < nk) load_stage(next % STAGES, next);
-    cp_async_commit();
+  const int cstages = cin / KC;
 
-    const __nv_bfloat16* as = As + (kt % STAGES) * BM * LDS;
-    const __nv_bfloat16* bs = Bs + (kt % STAGES) * COUT * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* p = as + (warp * 32 + mi * 16 + group) * LDS + kk + tig * 2;
-        a[mi][0] = lds32(p);
-        a[mi][1] = lds32(p + 8 * LDS);
-        a[mi][2] = lds32(p + 8);
-        a[mi][3] = lds32(p + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const __nv_bfloat16* p = bs + (ni * 8 + group) * LDS + kk + tig * 2;
-        const uint32_t b[2] = {lds32(p), lds32(p + 8)};
-        mma_16816(acc[0][ni], a[0], b);
-        mma_16816(acc[1][ni], a[1], b);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni) {
-    const int col = ni * 8 + tig * 2;
-    const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long m = m0 + warp * 32 + mi * 16 + group + 8 * h;
-        if (m < M) {
-          const __nv_bfloat162 v =
-              __floats2bfloat162_rn(acc[mi][ni][2 * h] + b0, acc[mi][ni][2 * h + 1] + b1);
-          *reinterpret_cast<__nv_bfloat162*>(y + m * COUT + col) = v;
+  if (warp == CONSUMERS * 4) {
+    // producer: one thread issues every TMA load
+    if (lane == 0) {
+      int kt = 0;
+      for (int cs = 0; cs < cstages; ++cs) {
+        const int a = cs & 1;
+        hopper::mbar_wait(&a_empty[a], ((cs >> 1) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&a_full[a], KC / 8 * (P::NV * 16));
+        for (int ch = 0; ch < KC / 8; ++ch)
+          hopper::tma_load_5d(smem + a * P::A_BYTES + ch * P::CHUNK_BYTES, &xmap, &a_full[a],
+                              cs * KC + ch * 8, x0 - 1, y0 - 1, z0 - 1, b);
+        for (int tap = 0; tap < TAPS; ++tap, ++kt) {
+          const int s = kt % P::STAGES;
+          hopper::mbar_wait(&w_empty[s], ((kt / P::STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&w_full[s], P::W_BYTES);
+          hopper::tma_load_2d(wring + s * P::W_BYTES, &wmap, &w_full[s], cs * KC, tap * COUT);
         }
       }
     }
+    return;
+  }
+
+  // consumers: warpgroup wg owns cout tile wg % MT of z-plane wg / MT
+  const int wg = warp >> 2;
+  const int mt = wg % P::MT, plane = wg / P::MT;
+  float acc[P::N / 2];
+#pragma unroll
+  for (int i = 0; i < P::N / 2; ++i) acc[i] = 0.f;
+
+  int kt = 0;
+  for (int cs = 0; cs < cstages; ++cs) {
+    const int a = cs & 1;
+    hopper::mbar_wait(&a_full[a], (cs >> 1) & 1);
+    const uint32_t abase = hopper::smem_addr(smem + a * P::A_BYTES);
+    for (int tap = 0; tap < TAPS; ++tap, ++kt) {
+      const int s = kt % P::STAGES;
+      hopper::mbar_wait(&w_full[s], (kt / P::STAGES) & 1);
+      // the tap's view: output voxel (plane, y, x) of the box reads haloed
+      // voxel (plane + dz, y + dy, x + dx), with dz, dy, dx in 0..2
+      const int v0 = ((plane + tap / 9) * P::HY + (tap / 3) % 3) * HX + tap % 3;
+      const uint32_t xv = abase + v0 * 16;
+      const uint32_t wv = hopper::smem_addr(wring + s * P::W_BYTES) + mt * 64 * KC * 2;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        // A, the weights: k16 step ks starts 32 bytes further into each
+        // 64-byte swizzled row; B, the input view: two chunks further on
+        const uint64_t da = hopper::make_desc(wv + ks * 32, 16, 8 * KC * 2, hopper::kSwizzle64B);
+        const uint64_t db = hopper::make_desc(xv + ks * 2 * P::CHUNK_BYTES, P::CHUNK_BYTES,
+                                              HX * 16, hopper::kInterleave);
+        hopper::Wgmma<P::N, 0, 0>::run(acc, da, db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the previous tap's MMAs are done with their tiles
+      if (kt > 0 && lane == 0) {
+        hopper::mbar_arrive(&w_empty[(kt - 1) % P::STAGES]);
+        if (tap == 0) hopper::mbar_arrive(&a_empty[(cs - 1) & 1]);  // stage cs - 1 is done
+      }
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // The block's output goes through shared memory, (voxel of the box, COUT)
+  // bf16, so that it leaves in 16-byte pieces: the input ring is free once
+  // both warpgroups' MMAs are done.  Thread t holds output channels co (+ 8)
+  // of voxels 8 j + 2 (t % 4) (+ 1) of its plane.
+  constexpr int BOX = P::BZ * P::BY * BX;
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
+  hopper::named_barrier_sync(1, CONSUMERS * 128);
+  const int co = mt * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (co + 8 * h >= COUT) continue;  // a padded row
+    const float bs = bias ? bias[co + 8 * h] : 0.f;
+#pragma unroll
+    for (int j = 0; j < P::BY; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        tile[(plane * P::N + 8 * j + 2 * (lane & 3) + e) * COUT + co + 8 * h] =
+            __float2bfloat16_rn(acc[4 * j + 2 * h + e] + bs);
+  }
+  hopper::named_barrier_sync(1, CONSUMERS * 128);
+  constexpr int PIECES = COUT / 8;  // 16-byte pieces of a voxel's outputs
+  for (int i = threadIdx.x; i < BOX * PIECES; i += CONSUMERS * 128) {
+    const int v = i / PIECES, piece = i - v * PIECES;
+    const int xx = x0 + v % BX, yy = y0 + (v / BX) % P::BY, zz = z0 + v / P::N;
+    if (xx >= W || yy >= H || zz >= D) continue;
+    *reinterpret_cast<uint4*>(
+        y + ((((static_cast<long long>(b) * D + zz) * H + yy) * W + xx) * COUT) + 8 * piece) =
+        *reinterpret_cast<const uint4*>(tile + v * COUT + 8 * piece);
   }
 }
 
 template <int COUT>
-int launch(const void* x, const void* wt, const void* bias, void* y, int D, int H, int W,
-           int cin, long long M, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<COUT>();
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel<COUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (M + BM - 1) / BM;
-  conv3x3_kernel<COUT><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), D, H, W, cin, M);
+int launch(const void* x, const void* wt, const void* bias, void* y, int batch, int D, int H,
+           int W, int cin, cudaStream_t stream) {
+  using P = Plan<COUT>;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[5] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(W),
+                             static_cast<uint64_t>(H), static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(batch)};
+  const uint64_t row = static_cast<uint64_t>(cin) * 2;
+  const uint64_t xstrides[4] = {row, row * W, row * W * H, row * W * H * D};
+  const uint32_t xbox[5] = {8, HX, P::HY, P::BZ + 2, 1};
+  int err = hopper::encode_bf16(&xmap, x, 5, xdims, xstrides, xbox, hopper::kInterleave);
+  if (err) return err;
+  const uint64_t wdims[2] = {static_cast<uint64_t>(cin), 27ull * COUT};
+  const uint64_t wstrides[1] = {row};
+  const uint32_t wbox[2] = {KC, 64 * P::MT};
+  err = hopper::encode_bf16(&wmap, wt, 2, wdims, wstrides, wbox, hopper::kSwizzle64B);
+  if (err) return err;
+
+  cudaError_t e = cudaFuncSetAttribute(conv3x3_kernel<COUT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nbz = (D + P::BZ - 1) / P::BZ, nby = (H + P::BY - 1) / P::BY;
+  const int nbx = (W + BX - 1) / BX;
+  const long long blocks = static_cast<long long>(batch) * nbz * nby * nbx;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  conv3x3_kernel<COUT><<<static_cast<unsigned>(blocks), THREADS, P::SMEM, stream>>>(
+      xmap, wmap, static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), D, H, W, cin,
+      nbz, nby, nbx);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bias may be null.
+// x: (batch, D, H, W, cin) bf16; wt: (27, cout, cin) bf16, tap-major, channel
+// contiguous; bias: (cout,) f32 or null; y: (batch, D, H, W, cout) bf16.  kc
+// (the channels per stage) and the output box (bz, by, bx) of a block are
+// the kernel's own, 32 and (2, 28, 8) or (1, 14, 8) for cout up to 64 or
+// above: the caller's plan must name them.  x and wt 16-byte aligned.
 extern "C" int nc_conv3x3_bf16(const void* x, const void* wt, const void* bias, void* y,
-                               int batch, int D, int H, int W, int cin, int cout,
-                               void* stream) {
-  if (cin <= 0 || cin % BK != 0 || batch <= 0 || D <= 0 || H <= 0 || W <= 0)
+                               int batch, int D, int H, int W, int cin, int cout, int kc, int bz,
+                               int by, int bx, void* stream) {
+  if (cin <= 0 || batch <= 0 || D <= 0 || H <= 0 || W <= 0 || kc != KC || cin % KC != 0 ||
+      bz != (cout > 64 ? 1 : 2) || by != (cout > 64 ? 14 : 28) || bx != BX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long M = static_cast<long long>(batch) * D * H * W;
-  if ((M + BM - 1) / BM > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cout) {
-    case 32: return launch<32>(x, wt, bias, y, D, H, W, cin, M, s);
-    case 64: return launch<64>(x, wt, bias, y, D, H, W, cin, M, s);
-    case 96: return launch<96>(x, wt, bias, y, D, H, W, cin, M, s);
-    case 128: return launch<128>(x, wt, bias, y, D, H, W, cin, M, s);
+    case 32: return launch<32>(x, wt, bias, y, batch, D, H, W, cin, s);
+    case 64: return launch<64>(x, wt, bias, y, batch, D, H, W, cin, s);
+    case 96: return launch<96>(x, wt, bias, y, batch, D, H, W, cin, s);
+    case 128: return launch<128>(x, wt, bias, y, batch, D, H, W, cin, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-extern "C" const char* nc_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+extern "C" const char* nc_error_string(int code) { return hopper::error_string(code); }

@@ -9,217 +9,159 @@
 // (18, 2*cin, 128) accumulator in VMEM across its sequential grid; Hopper
 // blocks run in no order, so here the long reduction over voxels is split:
 //   * it is a GEMM with M = 27*cin rows (tap, c), N = 64 (o) and K = the
-//     B*D*H*W voxels (1.26 M at 108^3).  A block owns BM = 128 rows (tap, c)
-//     by all 64 o, over one contiguous chunk of voxels; grid.y splits the
-//     voxels into chunks, and each block writes its f32 partial tile;
+//     voxels (1.26 M at 108^3).  A block owns 128 rows (two 64-row halves,
+//     each one tap and 64 channels) by all 64 o, over one chunk of voxel
+//     boxes; grid.y walks the chunks, and each block writes its f32 partial
+//     tile;
 //   * a second kernel adds the chunks' partials in chunk order and writes
 //     (27, 64, cin), so the result does not change from run to run.
 //
 // Bound on the H100: 2 * 27 * cin * 64 FLOP per voxel, against 2 * (cin + 64)
 // bytes read per voxel: ~440 (cin 64) to ~580 (cin 128) FLOP/byte, above the
 // card's ~295 bf16 FLOP/byte ridge, so the tensor cores bound it.  The design:
-//   * each stage brings 32 voxels of the shifted x (32 x 128 row segments,
-//     zero-filled off the volume) and of g (32 x 64) into shared memory with
-//     16-byte cp.async through a 3-deep ring, in their natural
-//     voxel-major layout;
-//   * both operands need the voxel axis as the MMA's K axis, which is the
-//     strided one in memory, so fragments come from ldmatrix.trans;
-//     rows are padded by 16 bytes so the eight row addresses of each 8x8
-//     matrix fall in distinct bank groups;
-//   * four warps each compute a 32 x 64 sub-tile with mma.sync m16n8k16
-//     bf16 -> f32.
-// TMA, wgmma and a fused partial reduction are not used yet.
+//   * the K tile is a box of BK = 128 voxels, (bz, by, bx) in (z, y, x).  A
+//     stage is three TMA tiled loads of the 5-D tensors: g at the box, and x
+//     at the box shifted by each half's tap, 64 channels each.  TMA fills
+//     coordinates outside the tensor with zeros: the shifted x reads zero
+//     where a tap leaves the volume, and g reads zero past the volume's
+//     edge, so the ragged boxes add nothing;
+//   * both operands arrive in their natural (voxel, channel) layout, 128-byte
+//     rows under the 128-byte swizzle: the voxel axis, the GEMM's K, is the
+//     strided one.  wgmma reads them MN-major (its transpose immediates), so
+//     nothing is transposed by hand;
+//   * one producer warp keeps a ring of STAGES stages in flight (full and
+//     empty mbarriers per stage), its one issuing thread stepping the box
+//     coordinates by increments: a 64-bit division per stage there held the
+//     whole kernel near 350 TFLOP/s; two consumer warpgroups, one per half,
+//     run wgmma m64n64k16, f32 accumulators in registers;
+//   * blocks that share a chunk (the row tiles, grid.x) are adjacent in the
+//     launch order, so their shifted reads of the same voxels meet in L2.
+// One block per SM: a ring of four 48 KB stages (~193 KB of shared memory),
+// which measured faster than two blocks of half the depth.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;       // (tap, c) rows per block
-constexpr int BN = 64;        // output channels o (all of them)
-constexpr int BK = 32;        // voxels per stage
-constexpr int LDA = BM + 8;   // padded shared-memory rows, in elements
-constexpr int LDB = BN + 8;
-constexpr int STAGES = 3;
-constexpr int THREADS = 128;  // four warps, each 32 rows x 64 o
+constexpr int BN = 64;            // output channels o (all of them)
+constexpr int BK = 128;           // voxels per stage: one box
 constexpr int TAPS = 27;
+constexpr int CONSUMERS = 2;      // warpgroups: one 64-row half each
+constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int OP_BYTES = BK * 64 * 2;          // one operand tile: 128 voxels x 64 channels
+constexpr int STAGE_BYTES = 3 * OP_BYTES;      // x half 0, x half 1, g
+constexpr int STAGES = 4;
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // a source size of 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
+// xmap: (B, D, H, W, cin) bf16, box (1, bz, by, bx, 64); gmap: (B, D, H, W,
+// 64) bf16, the same box; part: (chunks, 27 * cin, 64) f32.  grid (row tiles,
+// chunks); chunk k owns boxes [k * per_chunk, (k + 1) * per_chunk), boxes
+// numbered x fastest, then y, z and the batch.
+__global__ void __launch_bounds__(THREADS, 1)
+wconv_dw_partial(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
+                 float* __restrict__ part, int cin, int bz, int by, int bx, int nbz, int nby,
+                 int nbx, int nboxes, int per_chunk) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four transposed 8x8 b16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x: (M voxels, cin) bf16 over (B, D, H, W); g: (M, 64) bf16;
-// part: (chunks, 27 * cin, 64) f32.  grid (row tiles, chunks).
-__global__ void __launch_bounds__(THREADS)
-wconv_dw_partial(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
-                 float* __restrict__ part, int D, int H, int W, int cin, int M,
-                 int voxels_per_chunk) {
-  __shared__ __align__(16) __nv_bfloat16 As[STAGES][BK * LDA];
-  __shared__ __align__(16) __nv_bfloat16 Bs[STAGES][BK * LDB];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int group = lane >> 2;
-  const int tig = lane & 3;
-  const int rows = TAPS * cin;
-  const int r0 = blockIdx.x * BM;
-  const int k_begin = blockIdx.y * voxels_per_chunk;
-  const int k_end = min(M, k_begin + voxels_per_chunk);
-
-  // A loads: each thread copies row segment aseg (8 of the tile's 128
-  // (tap, c) rows) for voxels arow + 8 i.  The segment lies inside one tap
-  // (cin is a multiple of 8), so its tap and shift are fixed for the block.
-  const int aseg = tid & 15;
-  const int arow = tid >> 4;
-  const int ar = r0 + aseg * 8;
-  const bool a_live = ar < rows;
-  const int tap = a_live ? ar / cin : 0;
-  const int ac = ar - tap * cin;
-  const int dz = tap / 9 - 1, dy = (tap / 3) % 3 - 1, dx = tap % 3 - 1;
-  const int shift = (dz * H + dy) * W + dx;
-  // B loads: segment bseg (8 of the 64 o) for voxels brow + 16 j
-  const int bseg = tid & 7;
-  const int brow = tid >> 3;
-
-  // (z, y, x) of each A row's next voxel, decoded once and then advanced by
-  // BK voxels per stage (stages are loaded in order)
-  int vz[4], vy[4], vx[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k_begin + arow + 8 * i;
-    vx[i] = k % W;
-    vy[i] = (k / W) % H;
-    vz[i] = (k / W / H) % D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + arow + 8 * i;
-      const int zz = vz[i] + dz, yy = vy[i] + dy, xx = vx[i] + dx;
-      const bool ok = a_live && k < k_end && zz >= 0 && zz < D && yy >= 0 && yy < H &&
-                      xx >= 0 && xx < W;
-      const __nv_bfloat16* src = ok ? x + static_cast<long long>(k + shift) * cin + ac : x;
-      cp_async16(&As[stage][(arow + 8 * i) * LDA + aseg * 8], src, ok);
-      vx[i] += BK;
-      while (vx[i] >= W) {
-        vx[i] -= W;
-        if (++vy[i] == H) {
-          vy[i] = 0;
-          if (++vz[i] == D) vz[i] = 0;
+  const int rowblocks = TAPS * cin / 64;  // 64-row halves of the (tap, c) rows
+  const int k_begin = blockIdx.y * per_chunk;  // chunks * per_chunk fits an int
+  const int nk = max(0, min(nboxes, k_begin + per_chunk) - k_begin);
+
+  if (warp == CONSUMERS * 4) {
+    // producer: one thread issues every TMA load
+    if (lane == 0) {
+      int tap[CONSUMERS], c0[CONSUMERS];
+      for (int h = 0; h < CONSUMERS; ++h) {
+        const int rb = 2 * blockIdx.x + h;
+        // a half past the last row loads a valid tile and discards its sums
+        tap[h] = rb < rowblocks ? rb * 64 / cin : 0;
+        c0[h] = rb < rowblocks ? rb * 64 - tap[h] * cin : 0;
+      }
+      // the chunk's first box, then one step per stage, x fastest
+      int ix = k_begin % nbx, iy = k_begin / nbx % nby, iz = k_begin / nbx / nby % nbz;
+      int b = k_begin / nbx / nby / nbz;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        const int x0 = ix * bx, y0 = iy * by, z0 = iz * bz;
+        unsigned char* st = smem + s * STAGE_BYTES;
+        hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        for (int h = 0; h < CONSUMERS; ++h) {
+          const int t = tap[h];
+          hopper::tma_load_5d(st + h * OP_BYTES, &xmap, &full[s], c0[h], x0 + t % 3 - 1,
+                              y0 + (t / 3) % 3 - 1, z0 + t / 9 - 1, b);
+        }
+        hopper::tma_load_5d(st + 2 * OP_BYTES, &gmap, &full[s], 0, x0, y0, z0, b);
+        if (++ix == nbx) {
+          ix = 0;
+          if (++iy == nby) {
+            iy = 0;
+            if (++iz == nbz) {
+              iz = 0;
+              ++b;
+            }
+          }
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + brow + 16 * j;
-      const bool ok = k < k_end;
-      const __nv_bfloat16* src = ok ? g + static_cast<long long>(k) * BN + bseg * 8 : g;
-      cp_async16(&Bs[stage][(brow + 16 * j) * LDB + bseg * 8], src, ok);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-
-  const int nk = (k_end - k_begin + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, k_begin + s * BK);
-    cp_async_commit();
+    return;
   }
 
-  // ldmatrix lane roles: matrix lane / 8, its row lane % 8
-  const int lm = lane >> 3;
-  const int lr = lane & 7;
+  // consumers: warpgroup h owns the 64 rows of row block 2 blockIdx.x + h
+  const int h = warp >> 2;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt has landed, and every warp is done with kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < nk) load_stage(next % STAGES, k_begin + next * BK);
-    cp_async_commit();
-
-    const __nv_bfloat16* as = As[kt % STAGES];
-    const __nv_bfloat16* bs = Bs[kt % STAGES];
+    const int s = kt % STAGES;
+    hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint32_t a = hopper::smem_addr(smem + s * STAGE_BYTES + h * OP_BYTES);
+    const uint32_t bb = hopper::smem_addr(smem + s * STAGE_BYTES + 2 * OP_BYTES);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        // A[m][k] = As[k][m]: matrices (k, m), (k, m + 8), (k + 8, m), (k + 8, m + 8)
-        const int m = warp * 32 + mi * 16 + (lm & 1) * 8;
-        ldmatrix_x4_trans(a[mi], as + (kk + lr + (lm >> 1) * 8) * LDA + m);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ni += 2) {
-        // B[k][n] = Bs[k][n]: matrices (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk + lr + (lm & 1) * 8) * LDB + (ni + (lm >> 1)) * 8);
-        b[ni][0] = r[0];
-        b[ni][1] = r[1];
-        b[ni + 1][0] = r[2];
-        b[ni + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni]);
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      // 16 voxels = two 8-voxel swizzle atoms of 1024 bytes further on
+      const uint64_t da = hopper::make_desc(a + ks * 2048, 1024, 1024, hopper::kSwizzle128B);
+      const uint64_t db = hopper::make_desc(bb + ks * 2048, 1024, 1024, hopper::kSwizzle128B);
+      hopper::Wgmma<BN, 1, 1>::run(acc, da, db);
     }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // stage kt - 1's MMAs are done with its buffers
+    if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % STAGES]);
   }
-  cp_async_wait<0>();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
 
+  const int rb = 2 * blockIdx.x + h;
+  if (rb >= rowblocks) return;
+  const int rows = TAPS * cin;
   float* out = part + static_cast<long long>(blockIdx.y) * rows * BN;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rb * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * hh;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + warp * 32 + mi * 16 + group + 8 * h;
-      if (r < rows) {
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = ni * 8 + tig * 2;
-          *reinterpret_cast<float2*>(out + static_cast<long long>(r) * BN + col) =
-              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-        }
-      }
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(out + static_cast<long long>(r) * BN + col) =
+          make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
   }
 }
@@ -241,22 +183,51 @@ wconv_dw_combine(const float* __restrict__ part, float* __restrict__ dw, int cin
 
 }  // namespace
 
-// x: (batch, D, H, W, cin) bf16; g: (batch, D, H, W, 64) bf16;
-// part: (chunks, 27 * cin, 64) f32 scratch; dw: (27, 64, cin) f32.
+// x: (batch, D, H, W, cin) bf16, cin a multiple of 64; g: (batch, D, H, W,
+// 64) bf16; part: (chunks, 27 * cin, 64) f32 scratch; dw: (27, 64, cin) f32.
+// (bz, by, bx) is the voxel box of a pipeline stage, bz * by * bx = 64, and
+// chunk k sums boxes [k * per_chunk, (k + 1) * per_chunk) of the
+// batch * ceil(D / bz) * ceil(H / by) * ceil(W / bx) boxes, which the chunks
+// must cover.  x and g 16-byte aligned.
 extern "C" int nc_wconv_dw_bf16(const void* x, const void* g, void* part, void* dw, int batch,
-                                int D, int H, int W, int cin, int chunks, void* stream) {
-  const long long M = static_cast<long long>(batch) * D * H * W;
-  if (cin <= 0 || cin % 8 != 0 || batch <= 0 || D <= 0 || H <= 0 || W <= 0 || chunks <= 0 ||
-      chunks > 65535 || M > 0x7fffffffLL - 2LL * H * W)
+                                int D, int H, int W, int cin, int chunks, int bz, int by, int bx,
+                                int per_chunk, void* stream) {
+  if (cin <= 0 || cin % 64 != 0 || batch <= 0 || D <= 0 || H <= 0 || W <= 0 || chunks <= 0 ||
+      chunks > 65535 || per_chunk <= 0 || bz <= 0 || by <= 0 || bx <= 0 || bz > 256 ||
+      by > 256 || bx > 256 || bz * by * bx != BK)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int voxels_per_chunk = static_cast<int>(((M + chunks - 1) / chunks + BK - 1) / BK * BK);
-  const int tiles = (TAPS * cin + BM - 1) / BM;
+  const int nbz = (D + bz - 1) / bz, nby = (H + by - 1) / by, nbx = (W + bx - 1) / bx;
+  const long long nboxes = static_cast<long long>(batch) * nbz * nby * nbx;
+  const long long covered = static_cast<long long>(chunks) * per_chunk;
+  if (covered > 0x7fffffffLL || covered < nboxes)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  CUtensorMap xmap, gmap;
+  const uint32_t box[5] = {64, static_cast<uint32_t>(bx), static_cast<uint32_t>(by),
+                           static_cast<uint32_t>(bz), 1};
+  uint64_t dims[5] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(W),
+                      static_cast<uint64_t>(H), static_cast<uint64_t>(D),
+                      static_cast<uint64_t>(batch)};
+  uint64_t row = static_cast<uint64_t>(cin) * 2;
+  uint64_t strides[4] = {row, row * W, row * W * H, row * W * H * D};
+  int err = hopper::encode_bf16(&xmap, x, 5, dims, strides, box, hopper::kSwizzle128B);
+  if (err) return err;
+  dims[0] = BN;
+  row = BN * 2;
+  const uint64_t gstrides[4] = {row, row * W, row * W * H, row * W * H * D};
+  err = hopper::encode_bf16(&gmap, g, 5, dims, gstrides, box, hopper::kSwizzle128B);
+  if (err) return err;
+
+  cudaError_t e =
+      cudaFuncSetAttribute(wconv_dw_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (TAPS * cin / 64 + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  wconv_dw_partial<<<dim3(tiles, chunks), THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-      static_cast<float*>(part), D, H, W, cin, static_cast<int>(M), voxels_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  wconv_dw_partial<<<dim3(tiles, chunks), THREADS, SMEM, s>>>(
+      xmap, gmap, static_cast<float*>(part), cin, bz, by, bx, nbz, nby, nbx,
+      static_cast<int>(nboxes), per_chunk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long total = static_cast<long long>(TAPS) * cin * BN;
   const long long blocks = (total + 255) / 256;
   wconv_dw_combine<<<static_cast<unsigned>(blocks < 1024 ? blocks : 1024), 256, 0, s>>>(
@@ -264,6 +235,4 @@ extern "C" int nc_wconv_dw_bf16(const void* x, const void* g, void* part, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* nc_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+extern "C" const char* nc_error_string(int code) { return hopper::error_string(code); }

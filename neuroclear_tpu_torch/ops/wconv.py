@@ -10,7 +10,9 @@ Three wrappers, each with its own launch count, carry it on the card:
     the forward's cin (64 or 128) channels and no bias (replaces ``_kernel``
     as ``_bwd`` runs it);
   * ``conv3d_dw``: the weight gradient in the packed (27, 64, cin) layout,
-    kernel ``csrc/wconv_dw.cu`` (replaces ``_dw_kernel``).
+    kernel ``csrc/wconv_dw.cu`` (replaces ``_dw_kernel``), tiled by
+    ``dw_plan``: voxel boxes summed in chunks, the chunks in a fixed order,
+    so that dw is the same bits from run to run.
 Each runs its plain PyTorch version (the same sums, f32 accumulation) on a
 CPU tensor and launches its kernel on a CUDA tensor (bf16 only), or raises.
 ``WConvFn`` ties the three into one ``torch.autograd.Function``, as
@@ -23,16 +25,51 @@ full-resolution 64-output-channel convs, ``double_conv1.conv1`` (64 -> 64) and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .conv3x3 import acc_dtype, check_operand, conv3d_plain, launch, pack_weight
+from .conv3x3 import acc_dtype, box_counts, check_operand, conv3d_plain, launch, pack_weight
 
 COUT = 64
-_DW_TILE = 128            # csrc/wconv_dw.cu BM: (tap, c) rows per block
-_TARGET_BLOCKS = 4 * 132  # dw: about four blocks per H100 SM
-_DW_MIN_VOXELS = 2048     # dw: fewest voxels a chunk is worth
+DW_BOX = (2, 4, 16)         # csrc/wconv_dw.cu: the voxel box (z, y, x) of a pipeline stage
+DW_TILE_ROWS = 128          # csrc/wconv_dw.cu: (tap, c) rows per block, two 64-row halves
+_TARGET_BLOCKS = 4 * 132    # dw: four waves of one resident block per H100 SM
+_DW_MIN_BOXES = 32          # dw: fewest boxes (2,048 voxels) a chunk is worth
+
+
+class DwPlan(NamedTuple):
+    """How csrc/wconv_dw.cu tiles dw: the voxel ``box`` (bz, by, bx) of one
+    pipeline stage, the box counts along (z, y, x), ``nboxes`` in all
+    (numbered x fastest, then y, z and the batch), the row ``tiles`` of 128
+    (tap, c) rows, and the split of the boxes into ``chunks`` of
+    ``per_chunk`` consecutive boxes (the last may be shorter), summed in
+    chunk order."""
+    box: tuple[int, int, int]
+    counts: tuple[int, int, int]
+    nboxes: int
+    tiles: int
+    chunks: int
+    per_chunk: int
+
+    def chunk_boxes(self, k: int) -> range:
+        return range(k * self.per_chunk, min(self.nboxes, (k + 1) * self.per_chunk))
+
+
+def dw_plan(shape, cin: int) -> DwPlan:
+    """The plan for x of shape (B, D, H, W, ...) with ``cin`` channels, a
+    multiple of 64: about ``_TARGET_BLOCKS`` blocks, none of whose chunks
+    holds fewer than ``_DW_MIN_BOXES`` boxes unless the volume is that
+    small, and no chunk empty."""
+    b, d, h, w = shape[:4]
+    counts = box_counts(d, h, w, DW_BOX)
+    nboxes = b * counts[0] * counts[1] * counts[2]
+    tiles = -(-27 * cin // DW_TILE_ROWS)
+    chunks = max(1, min(_TARGET_BLOCKS // tiles, nboxes // _DW_MIN_BOXES))
+    per_chunk = -(-nboxes // chunks)
+    return DwPlan(DW_BOX, counts, nboxes, tiles, -(-nboxes // per_chunk), per_chunk)
 
 
 def supported(x_shape, cin: int, cout: int, k: int, stride: int, pad: int,
@@ -109,28 +146,27 @@ conv3d_dx.launches = 0
 
 def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dL/dw of ``conv3d`` in the packed (27, 64, cin) layout, f32: x (B, D,
-    H, W, cin) the forward's input, g (B, D, H, W, 64) the cotangent.  A CPU
-    tensor takes ``conv3d_dw_plain``; a CUDA tensor launches the kernel
-    (bf16 only) or raises."""
+    H, W, cin) the forward's input (cin a multiple of 64), g (B, D, H, W, 64)
+    the cotangent.  A CPU tensor takes ``conv3d_dw_plain``; a CUDA tensor
+    launches the kernel (bf16 only) or raises."""
     if x.device.type == "cpu":
         return conv3d_dw_plain(x, g)
     b, d, h, w, cin = x.shape
-    if x.dim() != 5 or cin % 8 or tuple(g.shape) != (b, d, h, w, COUT):
+    if x.dim() != 5 or cin % 64 or tuple(g.shape) != (b, d, h, w, COUT):
         raise ValueError(f"wconv dw does not take x {tuple(x.shape)}, g {tuple(g.shape)}")
     check_operand("wconv dw", "x", x, x.device, torch.bfloat16)
     check_operand("wconv dw", "g", g, x.device, torch.bfloat16)
     if x.device.type != "cuda":
         raise ValueError(f"wconv dw launches on a CUDA device, got a tensor on {x.device}")
-    voxels = b * d * h * w
-    tiles = -(-27 * cin // _DW_TILE)
-    chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-voxels // _DW_MIN_VOXELS)))
-    part = torch.empty((chunks, 27 * cin, COUT), dtype=torch.float32, device=x.device)
+    plan = dw_plan(x.shape, cin)
+    part = torch.empty((plan.chunks, 27 * cin, COUT), dtype=torch.float32, device=x.device)
     dw = torch.empty((27, COUT, cin), dtype=torch.float32, device=x.device)
     lib = build.load("wconv_dw")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.nc_wconv_dw_bf16(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                                    b, d, h, w, cin, chunks, stream)
+                                    b, d, h, w, cin, plan.chunks, *plan.box, plan.per_chunk,
+                                    stream)
     build.check(lib, code, "wconv_dw launch")
     conv3d_dw.launches += 1
     return dw

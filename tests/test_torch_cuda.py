@@ -141,6 +141,75 @@ def test_conv3x3_autograd_function_on_the_card(dev):
         assert ((k.float() - p.float()).abs() <= _bf16_step_tol(p.float())).all()
 
 
+# Shapes that cut the kernels' TMA boxes at every face: D of 1 and 2, H and W
+# not multiples of any box extent, W under the box's x extent, batch 2.
+RAGGED = [(1, 1, 9, 17), (2, 2, 7, 5), (1, 3, 13, 19), (2, 5, 6, 40), (1, 4, 9, 20)]
+
+
+@pytest.mark.parametrize("shape, cin, cout", [
+    (RAGGED[0], 64, 64), (RAGGED[1], 32, 96), (RAGGED[2], 96, 128), (RAGGED[3], 32, 32),
+    (RAGGED[4], 96, 64), (RAGGED[1], 192, 128), (RAGGED[0], 256, 96)])
+def test_conv3x3_kernel_ragged_boxes(dev, shape, cin, cout):
+    """The conv on boxes cut at every face; cin 32, 96 and 192 take 32-channel
+    stages under the 64-byte swizzle, the others 64-channel ones."""
+    g = torch.Generator(device="cpu").manual_seed(cin * cout + sum(shape))
+    x = torch.randn(*shape, cin, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(cout, cin, 3, 3, 3, generator=g) * math.sqrt(2.0 / (27 * cin))
+    b = torch.randn(cout, generator=g).to(dev)
+    wt = wconv.pack_weight(w.to(dev, torch.bfloat16))
+    y = conv3x3.conv3d(x, wt, b)
+    torch.cuda.synchronize()
+    p = conv3x3.conv3d_plain(x, wt, b).float()
+    assert ((y.float() - p).abs() <= _bf16_step_tol(p)).all()
+
+
+@pytest.mark.parametrize("shape, cin", [(RAGGED[0], 64), (RAGGED[1], 128), (RAGGED[2], 64)])
+def test_wconv_dx_kernel_ragged_boxes(dev, shape, cin):
+    g = torch.Generator(device="cpu").manual_seed(cin + sum(shape) + 7)
+    gy = torch.randn(*shape, 64, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(64, cin, 3, 3, 3, generator=g) * math.sqrt(2.0 / (27 * cin))
+    wt = wconv.pack_weight(w.to(dev, torch.bfloat16))
+    dx = wconv.conv3d_dx(gy, wt)
+    torch.cuda.synchronize()
+    p = wconv.conv3d_dx_plain(gy, wt).float()
+    assert ((dx.float() - p).abs() <= _bf16_step_tol(p)).all()
+
+
+@pytest.mark.parametrize("shape, cin", [(RAGGED[0], 128), (RAGGED[1], 64), (RAGGED[3], 64),
+                                        ((1, 19, 23, 52), 64), ((1, 19, 23, 52), 128)])
+def test_wconv_dw_kernel_ragged_boxes_and_chunks(dev, shape, cin):
+    """dw on boxes cut at every face and, at (1, 19, 23, 52), split into
+    chunks that start and end inside rows and planes of boxes; bitwise the
+    same on a second run."""
+    plan = wconv.dw_plan(shape, cin)
+    g = torch.Generator(device="cpu").manual_seed(cin + sum(shape) + 8)
+    x = torch.randn(*shape, cin, generator=g).to(dev, torch.bfloat16)
+    gy = torch.randn(*shape, 64, generator=g).to(dev, torch.bfloat16)
+    dw = wconv.conv3d_dw(x, gy)
+    torch.cuda.synchronize()
+    p = wconv.conv3d_dw_plain(x, gy)
+    mag = wconv.conv3d_dw_plain(x.abs(), gy.abs())
+    assert ((dw - p).abs() <= 1e-5 * mag + 1e-6).all()
+    assert torch.equal(dw, wconv.conv3d_dw(x, gy))
+    if shape == (1, 19, 23, 52):
+        assert plan.chunks > 1 and plan.per_chunk % plan.counts[2] and plan.nboxes % plan.per_chunk
+
+
+def test_wrappers_refuse_misaligned_views_on_the_card(dev):
+    """A contiguous view 2 bytes into its storage: no TMA map, no launch."""
+    buf = torch.zeros(2 * 4 * 6 * 8 * 64 + 8, dtype=torch.bfloat16, device=dev)
+    x = buf[1:1 + 2 * 4 * 6 * 8 * 64].view(2, 4, 6, 8, 64)
+    wt = torch.zeros((27, 64, 64), dtype=torch.bfloat16, device=dev)
+    before = (conv3x3.conv3d.launches, wconv.conv3d_dw.launches, wconv.conv3d.launches)
+    with pytest.raises(ValueError):
+        conv3x3.conv3d(x, wt, None)
+    with pytest.raises(ValueError):
+        wconv.conv3d(x, wt, torch.zeros(64, device=dev))
+    with pytest.raises(ValueError):
+        wconv.conv3d_dw(x, torch.zeros((2, 4, 6, 8, 64), dtype=torch.bfloat16, device=dev))
+    assert (conv3x3.conv3d.launches, wconv.conv3d_dw.launches, wconv.conv3d.launches) == before
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 7, 64), (2, 1000, 128), (3, 333, 256), (1, 5, 8),
                                    (1, 144, 512)])
