@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""Fault check of ``chip_smoke.py``'s training-step check on one NVIDIA GPU.
+"""Fault check of ``chip_smoke.py``'s training-step and kernel checks on one
+NVIDIA GPU.
 
     python3 chip_smoke_faults.py [--seed N]
 
 Runs the smoke's three-way step (``step_three_ways``: kernels in bf16, plain
 versions in bf16 and in f32, 108^3, identical weights, crop and draws) once
-as it is and once per fault, where a faulty wrapper stands in for one
-kernel in the kernel step only, and judges each with the smoke's own
-``judge_step``; then the smoke's untimed conv kernel checks (``check_conv``
-on the W-pair forward, ``check_train_conv``) with the same wrapper in place.
-It prints, per run, the gradient errors against f32, the largest tensor
-errors against the plain bf16 step and the failures of each check, and exits
-nonzero unless the run as it is passes both and every fault fails one.
+as it is and once per fault, and judges each with the smoke's own
+``judge_step``; then the smoke's untimed kernel checks (``check_conv`` on
+the W-pair forward, ``check_train_conv``, ``check_norm`` and
+``check_train_norm``) with the same fault in place.  A fault is either a
+faulty wrapper standing in for one kernel in the kernel step only, or a
+faulty statistics kernel: ``csrc/inorm.cu`` with one line changed, built
+beside the real library and loaded in its place (its counters reset before
+and after).  It prints, per run, the gradient errors against f32, the
+largest tensor errors against the plain bf16 step and the failures of each
+check, and exits nonzero unless the run as it is passes both and every
+fault fails one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import functools
+import subprocess
 import sys
 
 import torch
 
 import chip_smoke as cs
-from neuroclear_tpu_torch.ops import conv3x3, inorm, wconv
+from neuroclear_tpu_torch.ops import build, conv3x3, inorm, wconv
 
 
 def _dx_zero_on_call(n):
@@ -78,6 +86,63 @@ def _dw_last_box_of_each_chunk_skipped(f):
     return fn
 
 
+@contextlib.contextmanager
+def _swapped(module, name, wrap):
+    """``module.name`` replaced by ``wrap`` of it for the duration."""
+    kernel = getattr(module, name)
+    setattr(module, name, functools.update_wrapper(wrap(kernel), kernel))  # keeps .launches
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
+# Faulty statistics kernels: (label, line of csrc/inorm.cu, its replacement)
+STATS_FAULTS = [
+    ("stats combine without the last chunk's partial",
+     "const int k1 = min(chunks, k0 + per);", "const int k1 = min(chunks - 1, k0 + per);"),
+    ("stats ticket left unrestored", "if (threadIdx.x == 0) tickets[group] = 0u;", ""),
+]
+
+
+def _build_stats_faults() -> list:
+    """Build every faulty inorm library at once (one nvcc each); returns
+    their paths in the order of STATS_FAULTS."""
+    src = (build.CSRC / "inorm.cu").read_text()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, (label, old, new) in enumerate(STATS_FAULTS):
+        if src.count(old) != 1:
+            raise RuntimeError(f"fault {label!r}: {old!r} is not one line of inorm.cu")
+        cu = build.BUILD_DIR / f"inorm_fault{i}.cu"
+        cu.write_text(src.replace(old, new))
+        so = cu.with_suffix(".so")
+        jobs.append((so, subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                                           str(build.CSRC), "-o", str(so), str(cu)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)))
+    for so, proc in jobs:
+        out, _ = proc.communicate(timeout=build.BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {so.name}:\n{out}")
+    return [so for so, _ in jobs]
+
+
+@contextlib.contextmanager
+def _stats_kernel(path):
+    """The inorm library at ``path`` in place of the real one, with fresh
+    counters before and after."""
+    real = build.load("inorm")
+    build._LIBS["inorm"] = build.bind(ctypes.CDLL(str(path)), "inorm")
+    inorm._TICKETS.clear()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        build._LIBS["inorm"] = real
+        inorm._TICKETS.clear()
+
+
 FAULTS = [
     ("dx zeroed", wconv, "conv3d_dx", lambda f: lambda g, wt: torch.zeros_like(f(g, wt))),
     ("dx zeroed at G_A double_conv1.conv1", wconv, "conv3d_dx", _dx_zero_on_call(3)),
@@ -97,13 +162,15 @@ FAULTS = [
 
 
 def kernel_checks(dev, seed) -> list:
-    """The smoke's conv kernel checks (the kernels phases' W-pair forward at
-    the tile batch's shapes, dx and dw at the 108^3 step's), untimed: the
-    failures they raise."""
+    """The smoke's kernel checks (the kernels phases' W-pair forward and norm
+    at the tile batch's shapes, dx, dw and the norm at the 108^3 step's),
+    untimed: the failures they raise."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     bad = []
     for check in (lambda: cs.check_conv(gen, dev, wconv, cs.CONV_SHAPES, timed=False),
-                  lambda: cs.check_train_conv(gen, dev, timed=False)):
+                  lambda: cs.check_train_conv(gen, dev, timed=False),
+                  lambda: cs.check_norm(gen, dev, timed=False),
+                  lambda: cs.check_train_norm(gen, dev, timed=False)):
         try:
             check()
         except AssertionError as e:
@@ -139,16 +206,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     vol = cs.synthetic_volume(args.seed, cs.TRAIN_VOLUME)
+    stats_libs = _build_stats_faults()
     ok = run("as it is", args.seed, vol, dev) == 0
-    for label, module, name, wrap in FAULTS:
-        kernel = getattr(module, name)
-        fault = functools.update_wrapper(wrap(kernel), kernel)  # keeps .launches
-        setattr(module, name, fault)
-        try:
+    faults = [(label, _swapped(module, name, wrap)) for label, module, name, wrap in FAULTS]
+    faults += [(label, _stats_kernel(path)) for (label, _, _), path in zip(STATS_FAULTS,
+                                                                           stats_libs)]
+    for label, fault in faults:
+        with fault:
             ok &= run(label, args.seed, vol, dev) > 0
-        finally:
-            setattr(module, name, kernel)
-    cs.log("every fault fails the step check" if ok else "FAILED: see above")
+    cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 
 

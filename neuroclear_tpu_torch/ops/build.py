@@ -51,8 +51,8 @@ SIGNATURES = {
                               c_int, c_int, c_int, c_int, c_int, c_int, c_ptr], c_int),
     },
     "inorm": {
-        "nc_pair_sums": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int, c_int, c_int,
-                          c_int, c_ptr], c_int),
+        "nc_pair_sums": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int, c_int,
+                          c_int, c_ll, c_int, c_int, c_ptr], c_int),
         "nc_affine_map_act": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int,
                                c_int, c_int, c_ptr], c_int),
         "nc_bwd_map": ([c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_int,
@@ -160,13 +160,17 @@ def load(name: str) -> ctypes.CDLL:
     build_all([name])
     with _LOCK:
         if name not in _LIBS:
-            lib = ctypes.CDLL(str(_library_path(name)))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                f = getattr(lib, fn)
-                f.argtypes, f.restype = argtypes, restype
-            lib.nc_error_string.argtypes, lib.nc_error_string.restype = [c_int], ctypes.c_char_p
-            _LIBS[name] = lib
+            _LIBS[name] = bind(ctypes.CDLL(str(_library_path(name))), name)
         return _LIBS[name]
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the C signatures of library ``name``'s entry points on ``lib``."""
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = argtypes, restype
+    lib.nc_error_string.argtypes, lib.nc_error_string.restype = [c_int], ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -221,18 +221,16 @@ def test_inorm_backward_kernels_match_plain(dev, dtype, shape, act):
     g = torch.Generator(device="cpu").manual_seed(shape[1] + 3)
     x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(dev, dtype)
     gy = torch.randn(*shape, generator=g).to(dev, dtype)
-    scale, shift = inorm.norm_coefficients(inorm.pair_sums(x), shape[1])
+    _, scale, shift = inorm.pair_sums(x)
     pre, y = inorm.affine_map_act(x, scale, shift, act, keep_pre=True)
     pre_p, y_p = inorm.affine_map_act_plain(x, scale, shift, act, keep_pre=True)
     assert torch.equal(pre, pre_p) and torch.equal(y, y_p)
     assert torch.equal(inorm.affine_map_act(x, scale, shift, act), y_p)
-    s = inorm.pair_sums_gy(gy, pre, act)
+    s, mg, mgy = inorm.pair_sums_gy(gy, pre, act)
     gd = inorm.act_grad_plain(gy.double(), pre.double(), act)
     ref = torch.stack([gd.sum(1), (gd * pre.double()).sum(1)], 1)
     mag = torch.stack([gd.abs().sum(1), (gd * pre.double()).abs().sum(1)], 1)
     assert ((s.double() - ref).abs() <= 1e-5 * mag + 1e-30).all()
-    mg = (s[:, 0] / shape[1]).contiguous()
-    mgy = (s[:, 1] / shape[1]).contiguous()
     dx = inorm.bwd_map(gy, pre, scale, mg, mgy, act)
     assert torch.equal(dx, inorm.bwd_map_plain(gy, pre, scale, mg, mgy, act))
 
@@ -260,15 +258,141 @@ def test_instance_norm_function_on_the_card(dev, act):
 def test_inorm_kernels_match_plain(dev, dtype, shape):
     g = torch.Generator(device="cpu").manual_seed(shape[1])
     x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(dev, dtype)
-    s = inorm.pair_sums(x)
+    s, scale, shift = inorm.pair_sums(x)
     xd = x.double()
     ref = torch.stack([xd.sum(1), (xd * xd).sum(1)], 1)
     mag = torch.stack([xd.abs().sum(1), (xd * xd).sum(1)], 1)
     assert ((s.double() - ref).abs() <= 1e-5 * mag).all()
-    scale, shift = inorm.norm_coefficients(s, shape[1])
     for act in (None, "relu"):
         y = inorm.affine_map_act(x, scale, shift, act)
         assert torch.equal(y, inorm.affine_map_act_plain(x, scale, shift, act))
+
+
+def _within_f32_ulp(k: torch.Tensor, p: torch.Tensor, ulps: int) -> bool:
+    """Every element of k within ``ulps`` f32 units in the last place of p's
+    (or k's, the larger) magnitude."""
+    m = torch.maximum(k.abs(), p.abs())
+    _, e = torch.frexp(m)
+    ulp = torch.ldexp(torch.ones_like(m), e - 24)  # f32: 24 significant bits
+    return bool(((k - p).abs() <= ulps * ulp).all())
+
+
+def _stats_inputs(shape, dtype, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(dev, dtype)
+    gy = torch.randn(*shape, generator=g).to(dev, dtype)
+    return x, gy
+
+
+def _check_stats(fn, args, sums_ref, mag, glue):
+    """One launch; the sums within 1e-5 of the f64 sums of magnitudes; the
+    coefficients within 2 f32 ulp of the PyTorch glue on the kernel's own
+    sums; a second call bit-equal."""
+    before = fn.launches
+    s, c0, c1 = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    n, _, c = s.shape
+    assert c0.shape == c1.shape == (n, c) and c0.is_contiguous() and c1.is_contiguous()
+    assert ((s.double() - sums_ref).abs() <= 1e-5 * mag + 1e-30).all()
+    r0, r1 = glue(s)
+    assert _within_f32_ulp(c0, r0, 2) and _within_f32_ulp(c1, r1, 2)
+    again = fn(*args)
+    assert all(torch.equal(a, b) for a, b in zip((s, c0, c1), again))
+    return s, c0, c1
+
+
+# The discriminators' norms of a 108^3 step, the earlier card shapes, one that
+# streams in many chunks, R = 1, and the widest C of each dtype (C / V = 256)
+# read whole by one block per slab and in chunks
+STATS_SHAPES = [(1, 27 ** 2, 128), (1, 13 ** 2, 256), (1, 12 ** 2, 512), (1, 7, 64),
+                (2, 1000, 128), (3, 333, 256), (1, 5, 8), (1, 300_000, 64), (1, 1, 64),
+                ("widest", 700), ("widest", 40_000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+@pytest.mark.parametrize("form", [None, "gy", "gy relu", "gy leaky"])
+def test_stats_kernel_one_launch(dev, dtype, shape, form):
+    """pair_sums (form None) and pair_sums_gy: sums, coefficients and a
+    bit-equal second call, each call one launch."""
+    if shape[0] == "widest":
+        shape = (1, shape[1], 256 * 16 // torch.empty((), dtype=dtype).element_size())
+    x, gy = _stats_inputs(shape, dtype, shape[1] + shape[2], dev)
+    rows = shape[1]
+    if form is None:
+        xd = x.double()
+        ref = torch.stack([xd.sum(1), (xd * xd).sum(1)], 1)
+        mag = torch.stack([xd.abs().sum(1), (xd * xd).sum(1)], 1)
+        plan = inorm.stats_plan(*shape, x.element_size())
+        _check_stats(inorm.pair_sums, (x,), ref, mag,
+                     lambda s: inorm.norm_coefficients(s, rows))
+    else:
+        act = None if form == "gy" else form.split()[1]
+        gd = inorm.act_grad_plain(gy.double(), x.double(), act)
+        ref = torch.stack([gd.sum(1), (gd * x.double()).sum(1)], 1)
+        mag = torch.stack([gd.abs().sum(1), (gd * x.double()).abs().sum(1)], 1)
+        plan = inorm.stats_plan(*shape, x.element_size())
+        _check_stats(inorm.pair_sums_gy, (gy, x, act), ref, mag,
+                     lambda s: inorm.sum_means(s, rows))
+    if shape[1] >= 40_000:
+        assert plan.chunks > 1  # the cross-block step ran
+
+
+def test_stats_kernel_restores_its_tickets(dev):
+    """Calls at alternating shapes, in several chunks of different counts and
+    in one, stay right: each launch leaves its counters at zero for the
+    next."""
+    shapes = [(1, 300_000, 64), (2, 50_000, 128), (1, 729, 128), (1, 120_000, 64)]
+    calls = []
+    for shape in shapes:
+        x, gy = _stats_inputs(shape, torch.bfloat16, shape[1], dev)
+        ref = inorm.pair_sums(x)
+        ref_gy = inorm.pair_sums_gy(gy, x, "relu")
+        calls.append((x, gy, ref, ref_gy))
+    assert sum(inorm.stats_plan(*s, 2).chunks > 1 for s in shapes) == 3
+    for _ in range(3):
+        for x, gy, ref, ref_gy in calls:
+            xd = x.double()
+            got = inorm.pair_sums(x)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+            assert ((got[0][:, 0].double() - xd.sum(1)).abs()
+                    <= 1e-5 * xd.abs().sum(1)).all()
+            assert all(torch.equal(a, b) for a, b in zip(inorm.pair_sums_gy(gy, x, "relu"),
+                                                         ref_gy))
+    assert int(inorm._tickets(dev).abs().sum()) == 0
+
+
+def _device_operations(fn) -> list:
+    """The device operations one call of ``fn`` runs, by torch.profiler:
+    [(name, count)]."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+@pytest.mark.parametrize("shape", [(1, 20, 20, 20, 64), (1, 12, 12, 512)])
+def test_instance_norm_is_two_launches_each_way(dev, shape):
+    """On the kernel path a norm's forward is the statistics and the map, and
+    its backward the statistics and the map: two device operations each way,
+    with no PyTorch operation between them (in several chunks with tickets,
+    and in one)."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    x = torch.randn(*shape, generator=g).to(dev, torch.bfloat16).requires_grad_(True)
+    gy = torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+    n, c = shape[0], shape[-1]
+    assert (inorm.stats_plan(n, x.numel() // (n * c), c, 2).chunks > 1) == (c == 64)
+    inorm.instance_norm_act(x, "relu").backward(gy)  # builds and allocates once
+    x.grad = None
+    out = []
+    fwd = _device_operations(lambda: out.append(inorm.instance_norm_act(x, "relu")))
+    bwd = _device_operations(lambda: out[0].backward(gy))
+    assert sum(k for _, k in fwd) == 2 and sum(k for _, k in bwd) == 2, (fwd, bwd)
+    assert all("pair_sums_kernel" in name or "map" in name for name, _ in fwd + bwd)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -2,6 +2,7 @@
 JAX package's ``pallas_ops.instance_norm_act``, on the CPU, where the
 wrappers run their plain versions."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,12 +39,34 @@ def test_plain_flag_gives_the_same_result():
 def test_pair_sums_against_float64(dtype):
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.normal(size=(2, 1000, 64)).astype(np.float32)).to(dtype)
-    s = inorm.pair_sums(x)
+    s, scale, shift = inorm.pair_sums(x)
     assert s.dtype == torch.float32 and s.shape == (2, 2, 64)
+    assert scale.shape == shift.shape == (2, 64) and scale.is_contiguous()
     xd = x.double()
     ref = torch.stack([xd.sum(1), (xd * xd).sum(1)], 1)
-    scale = torch.stack([xd.abs().sum(1), (xd * xd).sum(1)], 1)
-    assert ((s.double() - ref).abs() <= 1e-5 * scale).all()
+    mag = torch.stack([xd.abs().sum(1), (xd * xd).sum(1)], 1)
+    assert ((s.double() - ref).abs() <= 1e-5 * mag).all()
+    ref_scale, ref_shift = inorm.norm_coefficients(s, 1000)
+    assert torch.equal(scale, ref_scale) and torch.equal(shift, ref_shift)
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 64), (1, 27, 128), (3, 50, 8)])
+def test_pair_sums_coefficients_match_jax_forward(shape):
+    """The plain triple's (scale, shift) against ``_inorm_fwd_impl``'s lines
+    on ``_pair_sums`` (fold 1), f32, rtol 1e-5: f32 sums in another order,
+    then rsqrt."""
+    rng = np.random.default_rng(shape[1])
+    x3 = (rng.normal(size=shape) * 2.5 + 1.0).astype(np.float32)
+    s, ss = pallas_ops._pair_sums(jnp.asarray(x3), jnp.asarray(x3))
+    mean = s / shape[1]
+    var = jnp.maximum(ss / shape[1] - jnp.square(mean), 0.0)
+    rstd = jax.lax.rsqrt(var + pallas_ops._EPS)
+    sums, scale, shift = inorm.pair_sums(torch.from_numpy(x3))
+    np.testing.assert_allclose(sums[:, 0].numpy(), np.asarray(s), rtol=RTOL,
+                               atol=RTOL * float(jnp.abs(s).max()))
+    np.testing.assert_allclose(sums[:, 1].numpy(), np.asarray(ss), rtol=RTOL)
+    np.testing.assert_allclose(scale.numpy(), np.asarray(rstd), rtol=RTOL)
+    np.testing.assert_allclose(shift.numpy(), np.asarray(-mean * rstd), rtol=RTOL, atol=RTOL)
 
 
 def test_affine_map_act_rounds_once():
@@ -64,7 +87,7 @@ def test_norm_coefficients_match_jax_formula():
     """mean and rstd from the sums as _inorm_fwd_impl derives them."""
     rng = np.random.default_rng(17)
     x = (rng.normal(size=(2, 300, 8)) * 2 + 1).astype(np.float32)
-    scale, shift = inorm.norm_coefficients(inorm.pair_sums(torch.from_numpy(x)), 300)
+    _, scale, shift = inorm.pair_sums(torch.from_numpy(x))
     mean = x.mean(1, dtype=np.float64)
     rstd = 1.0 / np.sqrt(x.var(1, dtype=np.float64) + 1e-5)
     np.testing.assert_allclose(scale.numpy(), rstd, rtol=RTOL)

@@ -60,12 +60,16 @@ def test_pair_sums_gy_and_bwd_map_match_jax(act):
         fn = jax.nn.relu if act == "relu" else (lambda v: jax.nn.leaky_relu(v, 0.2))
         gd = jax.vjp(fn, jnp.asarray(y3))[1](jnp.asarray(g3))[0]
     sg, sgy = pallas_ops._pair_sums(gd, jnp.asarray(y3))
-    s = inorm.pair_sums_gy(torch.from_numpy(g3), torch.from_numpy(y3), act)
+    s, mg_t, mgy_t = inorm.pair_sums_gy(torch.from_numpy(g3), torch.from_numpy(y3), act)
     assert s.dtype == torch.float32 and s.shape == (n, 2, c)
     _close(s[:, 0].numpy(), sg)
     _close(s[:, 1].numpy(), sgy)
     rstd = (rng.random((n, c), dtype=np.float32) + 0.5)
-    mg, mgy = np.asarray(sg) / rows, np.asarray(sgy) / rows
+    # _inorm_bwd's means (fold 1)
+    mg, mgy = np.array(sg / rows), np.array(sgy / rows)
+    assert mg_t.shape == mgy_t.shape == (n, c) and mg_t.is_contiguous()
+    _close(mg_t.numpy(), mg)
+    _close(mgy_t.numpy(), mgy)
     ref = pallas_ops._bwd_map(gd, jnp.asarray(y3), jnp.asarray(rstd), jnp.asarray(mg),
                               jnp.asarray(mgy))
     dx = inorm.bwd_map(torch.from_numpy(g3), torch.from_numpy(y3), torch.from_numpy(rstd),
