@@ -38,17 +38,30 @@ Phases, each printed with its name, seconds and result:
      held on the slice's bounds against the slice's f32 plain output and
      against the same route on the plain versions in bf16, and the device
      metrics against the host float64 path;
-  7. train: ``neuroclear_tpu_torch.train_onecube.main`` on a synthetic 160^3
-     uint16 volume at the production Apollo configuration (108^3 crops,
-     bf16, Kaiming weights from the seed): one warm-up step and five timed
-     ones on the card's clock (the trainer syncs only at the end), the
-     launches of every kernel per step checked exactly; then one step from
-     identical weights, crop and draws three ways (kernels in bf16, plain
-     versions in bf16, plain versions in f32), the kernel path's losses and
-     gradients held against f32 no worse than the plain bf16 path's, and
-     each gradient tensor against the plain bf16 step's; and the written G_A
-     checkpoint run through ``test_dice.main``;
-  8. profile (only with --profile): a warm run of the slice's tile pipeline
+  7. train: ``neuroclear_tpu_torch.train_onecube.main`` with the production
+     command of ``train_onecube.py`` verbatim (``random3Drotate``, 108^3
+     crops, bf16 by default, ``--display_histogram --add_date``) on a
+     synthetic 160^3 uint16 TIFF, Kaiming weights from the seed: one warm-up
+     step and five timed ones on the card's clock (the trainer syncs only at
+     the end), the launches of every kernel per step checked exactly, the
+     step median printed beside the same run without rotation; rotated
+     crops of the sampler on the card held against an independent float64
+     reference (``scipy.ndimage.map_coordinates``, order 1, over the slab at
+     the port's host geometry), the sampler run with
+     ``torch.cuda.set_sync_debug_mode("error")`` (any device-to-host sync
+     fails), its device time and operations; one step from identical
+     weights, crop and draws three ways (kernels in bf16, plain versions in
+     bf16, plain versions in f32), the kernel path's losses and gradients
+     held against f32 no worse than the plain bf16 path's, and each gradient
+     tensor against the plain bf16 step's; and the written G_A checkpoint
+     run through ``test_dice.main``;
+  8. resume: the production command with ``--lr_policy linear`` for three
+     steps, then ``--continue_train --load_iter 3``: the reloaded
+     parameters, Adam state and schedule position equal to the first run's
+     at its save, the next step from both (same crop and draws) as close as
+     two runs of that step from one state, and the resumed trainer's two
+     steps through its entry point with their launches and checkpoint names;
+  9. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv) and a warm training step under
      torch.profiler, device time by kernel and the device's idle share, and
      warm steps with and without a sync after each.
@@ -62,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import faulthandler
 import json
 import math
@@ -83,7 +97,9 @@ from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
     D_NAMES, G_NAMES, LOSS_NAMES, ApolloModel)
 from neuroclear_tpu_torch.nn.factory import define_G
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
-from neuroclear_tpu_torch.ops import build, conv3x3, inorm, wconv
+from neuroclear_tpu_torch.ops import build, conv3x3, inorm, rotation, wconv
+from neuroclear_tpu_torch.ops.augment import crop_draws
+from neuroclear_tpu_torch.options import train_options
 from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
 from neuroclear_tpu_torch.utils import tiffio
@@ -132,18 +148,33 @@ SLICE_MAX_EXTRA_LSB = 2 * 256
 SLICE_KP_MAX_LSB = 8 * 256
 SLICE_KP_MEAN_LSB = 128
 
-# Train: the production Apollo configuration (train_onecube.py:11-18,
-# bench.py leg_train), bf16 compute with f32 master weights
+# Train: the production command of train_onecube.py:11-17, verbatim (bf16
+# compute with f32 master weights is the port's default precision)
 CROP = 108
 TRAIN_VOLUME = 160
 TRAIN_ITERS = 6  # one warm-up step, then five timed ones
-TRAIN_ARGS = ["--model", "axial_to_lateral_gan_apollo", "--netG", "unet_deconv",
-              "--netG_B", "deep_linear_gen", "--netD", "basic", "--gan_mode", "lsgan",
-              "--init_type", "kaiming", "--norm", "instance", "--lambda_A", "5",
-              "--lambda_plane", "1", "1", "1", "--lr_policy", "constant",
-              "--randomize_projection_depth", "--projection_depth", "10",
-              "--crop_size", str(CROP), str(CROP), str(CROP), "--precision", "bfloat16",
-              "--preprocess", "randomcrop_randomflip_addColorChannel_addBatchChannel"]
+PRODUCTION_ARGS = [
+    "--dataset_mode", "singlevolume",
+    "--preprocess", "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel",
+    "--model", "axial_to_lateral_gan_apollo", "--netG", "unet_deconv",
+    "--netG_B", "deep_linear_gen", "--netD", "basic", "--gan_mode", "lsgan",
+    "--init_type", "kaiming", "--norm", "instance", "--batch_size", "1", "--lambda_A", "5",
+    "--crop_size", str(CROP), str(CROP), str(CROP), "--lambda_plane", "1", "1", "1",
+    "--save_by_iter", "--save_latest_freq", "500", "--lr_policy", "constant",
+    "--randomize_projection_depth", "--projection_depth", "10", "--display_histogram",
+    "--add_date"]
+NO_ROTATION = ["--preprocess", "randomcrop_randomflip_addColorChannel_addBatchChannel"]
+# Rotated crops held against scipy's float64 bilinear map over the slab:
+# angles away from the multiples of 90 degrees (where sin or cos is zero and
+# a flipped sign or a transposed map would not show), and the bound: the
+# card's f32 source coordinates (up to ~250, a few ulp of 1.5e-5 each) move
+# a sample by at most that times the step between neighbours (< 1 on the
+# [0, 1] scale)
+ROT_ANGLES = (37.0, 113.0, 211.0, 302.0)
+ROT_ATOL = 1e-4
+# Resume: a schedule that moves every step (linear decay from iteration 2
+# over 8), so a schedule position restored wrong changes the next step
+RESUME_ARGS = ["--lr_policy", "linear", "--n_epochs", "2", "--n_epochs_decay", "8"]
 # Launches per training step, derived from the nets: the W-pair conv serves
 # double_conv1.conv1 and ex_conv1_1.conv0 of G_A and feat1 of G_B, forward
 # and backward; every one of the 64 instance norms (G_A's 10, and 3 in each
@@ -361,17 +392,23 @@ def check_stats(fn, args, ref, mag, glue, label: str) -> tuple:
     return out
 
 
-def one_device_operation(fn, label: str) -> None:
-    """One call of a warm wrapper under torch.profiler runs exactly one
-    device operation: the statistics, the cross-block step and the
-    coefficients are one launch, with no PyTorch operation around it."""
+def device_operations(fn) -> list:
+    """The device rows (name, ms, count) of one call of a warm ``fn`` under
+    torch.profiler."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = _device_rows(prof)
+    return _device_rows(prof)
+
+
+def one_device_operation(fn, label: str) -> None:
+    """One call of a warm wrapper under torch.profiler runs exactly one
+    device operation: the statistics, the cross-block step and the
+    coefficients are one launch, with no PyTorch operation around it."""
+    rows = device_operations(fn)
     ops = sum(r[2] for r in rows)
     log(f"  {label}: {ops} device operation(s) per call: "
         + ", ".join(f"{k[:60]} x{c}" for k, _, c in rows))
@@ -818,7 +855,7 @@ def step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
     """One step from identical weights, crop and draws: {label: (losses,
     gradients)} for the kernels in bf16 and the plain versions in bf16 and
     in f32."""
-    opt = train_onecube.build_parser().parse_args(["--dataroot", "unused", *TRAIN_ARGS])
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *PRODUCTION_ARGS])
     dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
     gen = torch.Generator().manual_seed(seed + 1)
     real = dataset.sample(gen)
@@ -891,20 +928,87 @@ def check_step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
     return stats["pooled"]
 
 
+def rotated_reference(vol: np.ndarray, angle: float, offsets, flips) -> np.ndarray:
+    """The rotated crop in float64, independently of the sampler: the
+    source coordinates of each output voxel from the port's host geometry
+    (``ops/rotation.py``), then ``scipy.ndimage.map_coordinates`` (order 1,
+    mode "nearest") over each slice of the slab, then the flips.  The JAX
+    chain clips each tap's index to the slice; above n - 1 that is "nearest",
+    below 0 it samples at the coordinate's fractional part, which the
+    reference maps the same way."""
+    from scipy import ndimage
+
+    z_n, y_n, x_n = vol.shape
+    g = rotation.rotation_geometry(x_n, y_n, angle)
+    i00, i01, i02, i10, i11, i12 = (float(c) for c in g.inv)
+    z0, y0, x0 = offsets
+    py = (g.y1 + y0 + np.arange(CROP, dtype=np.float64))[:, None]
+    px = (g.x1 + x0 + np.arange(CROP, dtype=np.float64))[None, :]
+    coords = [i10 * px + i11 * py + i12, i00 * px + i01 * py + i02]  # (y, x)
+    coords = [np.where(c < 0, c - np.floor(c), c) for c in coords]
+    slab = vol[z0:z0 + CROP].astype(np.float64) * dtype_inv_scale(vol.dtype)
+    ref = np.stack([ndimage.map_coordinates(sl, coords, order=1, mode="nearest")
+                    for sl in slab])
+    return np.flip(ref, [d for d, f in enumerate(flips) if f]).copy()
+
+
+def check_rotation(vol: np.ndarray, dev, seed: int) -> dict:
+    """The production sampler on the card: rotated crops at ``ROT_ANGLES``
+    (offsets and flips drawn from the seed) against ``rotated_reference``
+    within ``ROT_ATOL``; then, with ``torch.cuda.set_sync_debug_mode
+    ("error")``, three samples (draws and crop, as the trainer takes them),
+    which fails on any device-to-host sync; and the sampler's device time
+    and operations, with rotation and without."""
+    preprocess = PRODUCTION_ARGS[PRODUCTION_ARGS.index("--preprocess") + 1]
+    dataset = SingleVolumeDataset(vol, (CROP,) * 3, preprocess, dev)
+    gen = torch.Generator().manual_seed(seed + 3)
+    worst = 0.0
+    for angle in ROT_ANGLES:
+        offsets, flips = crop_draws(vol.shape, (CROP,) * 3, gen, angle)
+        got = dataset.crop(angle, offsets, flips)[0, ..., 0].double().cpu().numpy()
+        err = float(np.abs(got - rotated_reference(vol, angle, offsets, flips)).max())
+        log(f"  rotated crop {angle:g} deg, offsets {offsets}, flips {flips}: max_abs_err "
+            f"{err:.3g} against float64 map_coordinates")
+        if not err <= ROT_ATOL:  # NaN fails
+            raise AssertionError(f"rotated crop at {angle} deg off the float64 reference by "
+                                 f"{err} (limit {ROT_ATOL})")
+        worst = max(worst, err)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            dataset.sample(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("  three samples with set_sync_debug_mode('error'): no device-to-host sync")
+    flat = SingleVolumeDataset(vol, (CROP,) * 3, NO_ROTATION[1], dev)
+    out = {"max_abs_err": worst}
+    for label, ds in (("rotated", dataset), ("not rotated", flat)):
+        ms = cuda_ms(lambda: ds.sample(gen), 20)
+        ops = sum(r[2] for r in device_operations(lambda: ds.sample(gen)))
+        log(f"  sampler ({label}): {ms:.4f} ms of device time, {ops} device operations per "
+            "crop")
+        out[label] = {"ms": ms, "ops": ops}
+    return out
+
+
+def _median_ms(seconds) -> float:
+    timed = sorted(seconds[1:])  # the first step is the warm-up
+    return 1e3 * timed[len(timed) // 2]
+
+
 def run_train(seed: int, dev, tmp: str) -> dict:
-    """The trainer at the production configuration, its launch counts, the
-    three-way step check and its checkpoint through inference."""
+    """The trainer with the production command on a TIFF, its launch
+    counts, the step median with and without rotation, the rotation check,
+    the three-way step check and its checkpoint through inference."""
     vol = synthetic_volume(seed, TRAIN_VOLUME)
     data = os.path.join(tmp, "train_data")
-    os.makedirs(data)
-    np.save(os.path.join(data, "volume.npy"), vol)
+    tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
     ckpt = os.path.join(tmp, "train_ckpt")
+    argv = ["--dataroot", data, "--name", "smoke", "--checkpoints_dir", ckpt, *PRODUCTION_ARGS,
+            "--max_iters", str(TRAIN_ITERS), "--seed", str(seed)]
     kernel_ops.reset_launches()
-    res = train_onecube.main(["--dataroot", data, "--name", "smoke", "--checkpoints_dir", ckpt,
-                              "--max_iters", str(TRAIN_ITERS), "--save_latest_freq",
-                              str(TRAIN_ITERS), "--save_by_iter", "--print_freq",
-                              str(TRAIN_ITERS),
-                              "--seed", str(seed), *TRAIN_ARGS])
+    res = train_onecube.main(argv)
     launches = kernel_ops.launches()
     expected = {k: TRAIN_ITERS * v for k, v in STEP_LAUNCHES.items()}
     log(f"  launches over {TRAIN_ITERS} steps {launches}, expected {expected}")
@@ -913,19 +1017,25 @@ def run_train(seed: int, dev, tmp: str) -> dict:
     for step in res["losses"]:
         if not all(math.isfinite(v) for v in step.values()):
             raise AssertionError(f"a loss is not finite: {step}")
-    timed = sorted(res["step_seconds"][1:])
-    step_ms = 1e3 * timed[len(timed) // 2]
+    step_ms = _median_ms(res["step_seconds"])
+    flat = train_onecube.main([*argv, *NO_ROTATION, "--name", "smoke_no_rotation"])
+    flat_ms = _median_ms(flat["step_seconds"])
     log(f"  step ms: first {1e3 * res['step_seconds'][0]:.1f}, then "
         + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"][1:])
-        + f"; median {step_ms:.1f} ms ({CROP}^3, bf16)")
+        + f"; median {step_ms:.1f} ms ({CROP}^3, bf16, rotation); without rotation "
+        + ", ".join(f"{1e3 * t:.1f}" for t in flat["step_seconds"][1:])
+        + f"; median {flat_ms:.1f} ms")
     log("  last losses: " + ", ".join(f"{k} {v:.5g}" for k, v in res["losses"][-1].items()))
+    del res["model"], flat
 
+    rot = check_rotation(vol, dev, seed)
     pooled = check_step_three_ways(seed, vol, dev)
 
     small = os.path.join(tmp, "infer_data")
     os.makedirs(small)
     np.save(os.path.join(small, "volume.npy"), synthetic_volume(seed + 2, 72))
-    out = test_dice.main(["--dataroot", small, "--name", "smoke", "--checkpoints_dir", ckpt,
+    name = os.path.basename(os.path.dirname(res["checkpoints"][0]))
+    out = test_dice.main(["--dataroot", small, "--name", name, "--checkpoints_dir", ckpt,
                           "--load_iter", str(TRAIN_ITERS), "--model_suffix", "_A",
                           "--dice_size", "48", "48", "48", "--overlap", "8", "--border_cut",
                           "4", "--precision", "bfloat16", "--results_dir",
@@ -934,8 +1044,95 @@ def run_train(seed: int, dev, tmp: str) -> dict:
     if vol_out.shape != (72, 72, 72) or vol_out.dtype != np.uint16 or vol_out.std() == 0:
         raise AssertionError(f"trained G_A output {vol_out.shape} {vol_out.dtype} "
                              f"std {vol_out.std()}")
-    return {"launches": launches, "step_ms": step_ms, "losses": res["losses"][-1],
-            "pooled": pooled}
+    return {"launches": launches, "step_ms": step_ms, "flat_ms": flat_ms, "rotation": rot,
+            "losses": res["losses"][-1], "pooled": pooled}
+
+
+def _model_state_diffs(a, b) -> list:
+    """Where two models' parameters, Adam state or schedule positions
+    differ (bitwise)."""
+    bad = []
+    for name in G_NAMES + D_NAMES:
+        for (pn, p), q in zip(a.nets[name].named_parameters(), b.nets[name].parameters()):
+            if not torch.equal(p, q):
+                bad.append(f"{name}.{pn}")
+    for label, oa, ob in (("G", a.optim_g, b.optim_g), ("D", a.optim_d, b.optim_d)):
+        for i, (p, q) in enumerate(zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"])):
+            sa, sb = oa.state.get(p), ob.state.get(q)
+            if sa is None or sb is None or float(sa["step"]) != float(sb["step"]) or not (
+                    torch.equal(sa["exp_avg"], sb["exp_avg"])
+                    and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])):
+                bad.append(f"Adam {label} state {i}")
+    if [c.state() for c in a.lr_controllers] != [c.state() for c in b.lr_controllers]:
+        bad.append(f"schedule {[c.state() for c in a.lr_controllers]} vs "
+                   f"{[c.state() for c in b.lr_controllers]}")
+    return bad
+
+
+def _params(model) -> list:
+    return [p.detach().double() for n in G_NAMES + D_NAMES for p in model.nets[n].parameters()]
+
+
+def run_resume(seed: int, dev, tmp: str) -> dict:
+    """Three production steps with a moving schedule, then the resume from
+    iter_3: the reloaded state against the first run's in memory, the next
+    step from both against two runs of it from one state, and the resumed
+    trainer's own two steps."""
+    vol = synthetic_volume(seed + 4, TRAIN_VOLUME)
+    data = os.path.join(tmp, "data")
+    tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
+    argv = ["--dataroot", data, "--name", "resume", "--checkpoints_dir",
+            os.path.join(tmp, "ckpt"), *PRODUCTION_ARGS, *RESUME_ARGS, "--seed", str(seed)]
+    first = train_onecube.main([*argv, "--max_iters", "3"])
+    a = first["model"]
+    name = os.path.basename(os.path.dirname(first["checkpoints"][0]))
+    resume_argv = [*argv, "--name", name, "--continue_train", "--load_iter", "3"]
+    _, dataset, b = train_onecube.setup(train_options.parse(resume_argv))
+    bad = _model_state_diffs(a, b)
+    log(f"  reloaded iter_3 of {name}: parameters, Adam state and schedule "
+        f"{[c.state() for c in b.lr_controllers]} (scale {b.lr_scale:.4g}) "
+        + ("equal to the first run's in memory" if not bad else f"DIFFER: {bad[:6]}"))
+    if bad:
+        raise AssertionError(f"the resumed state differs from the saved one: {bad[:6]}")
+
+    # the next step from the saved state: in memory, a copy of it, resumed
+    again = copy.deepcopy(a)
+    before = _params(a)
+    gen = torch.Generator().manual_seed(seed + 5)
+    real, draws = dataset.sample(gen), b.draw_probes((CROP,) * 3, gen)
+    for model in (a, again, b):
+        model.optimize_parameters(real, draws)
+    after = {k: _params(m) for k, m in (("a", a), ("again", again), ("b", b))}
+    size = math.sqrt(sum(float(((p - q) ** 2).sum()) for p, q in zip(after["a"], before)))
+
+    def rel(x):
+        return math.sqrt(sum(float(((p - q) ** 2).sum())
+                             for p, q in zip(after[x], after["a"]))) / size
+
+    rerun, resumed = rel("again"), rel("b")
+    log(f"  next step, relative L2 of the parameter updates: resumed vs in memory "
+        f"{resumed:.3g}, two runs from the in-memory state {rerun:.3g}")
+    if not (resumed <= 2 * rerun if rerun > 0 else resumed == 0):
+        raise AssertionError(f"the resumed step differs from the in-memory one by {resumed}, "
+                             f"two runs from one state by {rerun}")
+    del a, again, b, first, after, before
+    torch.cuda.empty_cache()
+
+    kernel_ops.reset_launches()
+    second = train_onecube.main([*resume_argv, "--max_iters", "2"])
+    launches = kernel_ops.launches()
+    expected = {k: 2 * v for k, v in STEP_LAUNCHES.items()}
+    log(f"  resumed trainer: launches over 2 steps {launches}, expected {expected}; wrote "
+        + ", ".join(sorted({os.path.basename(p) for p in second['checkpoints']})))
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    suffixes = {os.path.basename(p).split("_net_")[0].split("_optim")[0]
+                for p in second["checkpoints"]}
+    if suffixes != {"iter_6"}:  # resumes at 3 + 1 and runs iterations 5 and 6
+        raise AssertionError(f"the resumed run wrote {sorted(suffixes)}, expected iter_6")
+    if not all(math.isfinite(v) for step in second["losses"] for v in step.values()):
+        raise AssertionError(f"a resumed loss is not finite: {second['losses']}")
+    return {"launches": launches, "rerun": rerun, "resumed": resumed}
 
 
 def profile_pipeline(dev, seed: int) -> None:
@@ -981,16 +1178,18 @@ def _device_rows(prof):
 
 def profile_train_step(dev, seed: int) -> None:
     """Where the time of a 108^3 training step goes: a warm step timed on
-    the host clock, then one under torch.profiler, device time by kernel."""
-    opt = train_onecube.build_parser().parse_args(["--dataroot", "unused", *TRAIN_ARGS])
-    dataset = SingleVolumeDataset(synthetic_volume(seed, TRAIN_VOLUME), (CROP,) * 3,
-                                  opt.preprocess, dev)
+    the host clock, then one under torch.profiler, device time by kernel;
+    and the device time and operations of the same step on a crop without
+    rotation."""
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *PRODUCTION_ARGS])
+    vol = synthetic_volume(seed, TRAIN_VOLUME)
+    dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
     model = ApolloModel(opt, dev)
     model.init_weights(seed)
     gen = torch.Generator().manual_seed(seed)
 
-    def step(sync=True):
-        model.optimize_parameters(dataset.sample(gen), model.draw_probes((CROP,) * 3, gen))
+    def step(sync=True, data=dataset):
+        model.optimize_parameters(data.sample(gen), model.draw_probes((CROP,) * 3, gen))
         if sync:
             torch.cuda.synchronize()
 
@@ -1022,6 +1221,10 @@ def profile_train_step(dev, seed: int) -> None:
         f"operations; peak device memory {peak_gib:.2f} GiB")
     for key, ms, count in rows[:24]:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
+    flat = SingleVolumeDataset(vol, (CROP,) * 3, NO_ROTATION[1], dev)
+    rows = device_operations(lambda: step(data=flat))
+    log(f"  the same step on a crop without rotation: device time "
+        f"{sum(r[1] for r in rows):.1f} ms; {sum(r[2] for r in rows)} device operations")
 
 
 def nvidia_smi() -> str:
@@ -1089,9 +1292,15 @@ def main(argv=None) -> int:
 
     with Phase("train") as ph, tempfile.TemporaryDirectory() as tmp:
         tr = run_train(args.seed, dev, tmp)
-        ph.result = (f"{CROP}^3 Apollo step {tr['step_ms']:.1f} ms (median of "
-                     f"{TRAIN_ITERS - 1}), gradient error against f32 (kernels / plain bf16) "
-                     f"{tr['pooled']}")
+        ph.result = (f"{CROP}^3 Apollo step {tr['step_ms']:.1f} ms with rotation, "
+                     f"{tr['flat_ms']:.1f} ms without (medians of {TRAIN_ITERS - 1}), rotated "
+                     f"crops within {tr['rotation']['max_abs_err']:.3g} of float64, gradient "
+                     f"error against f32 (kernels / plain bf16) {tr['pooled']}")
+
+    with Phase("resume") as ph, tempfile.TemporaryDirectory() as tmp:
+        rs = run_resume(args.seed, dev, tmp)
+        ph.result = (f"state restored exactly; next step {rs['resumed']:.3g} from the "
+                     f"in-memory one (two runs from one state: {rs['rerun']:.3g})")
 
     if args.profile:
         with Phase("profile"):
@@ -1104,7 +1313,7 @@ def main(argv=None) -> int:
     # launches, the training kernels' rows one 108^3 step's; the forward
     # norm's rows (pair_sums, affine_map_act) carry the step's sums beside
     # the batch's as step_*; launches are the counts of the slice's run, the
-    # dice CLI's run and the trainer's.
+    # dice CLI's run, the trainer's and the resumed trainer's.
     rows = []
     csrc = "neuroclear_tpu_torch/ops/csrc/"
     for name, src, replaces, tot in (
@@ -1117,7 +1326,7 @@ def main(argv=None) -> int:
             ("bwd_map", "inorm.cu", "pallas_ops.py:143", bmap),
             ("conv3x3", "conv3x3.cu", "pallas_conv.py:93", c3)):
         by_path = {"slice": sl["launches"][name], "dice": dc["launches"][name],
-                   "train": tr["launches"][name]}
+                   "train": tr["launches"][name], "resume": rs["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,

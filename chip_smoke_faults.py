@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Fault check of ``chip_smoke.py``'s training-step and kernel checks on one
-NVIDIA GPU.
+"""Fault check of ``chip_smoke.py``'s rotation, training-step and kernel
+checks on one NVIDIA GPU.
 
     python3 chip_smoke_faults.py [--seed N]
 
@@ -15,8 +15,12 @@ faulty statistics kernel: ``csrc/inorm.cu`` with one line changed, built
 beside the real library and loaded in its place (its counters reset before
 and after).  It prints, per run, the gradient errors against f32, the
 largest tensor errors against the plain bf16 step and the failures of each
-check, and exits nonzero unless the run as it is passes both and every
-fault fails one.
+check.  Before those, the smoke's rotation check (``check_rotation``: the
+rotated crops of the sampler against a float64 reference) runs as it is and
+with each faulty sampler: the rotation's angle with its sign flipped, and
+its inverse affine transposed (the geometry the sampler reads replaced; the
+reference keeps the real one).  It exits nonzero unless the runs as they
+are pass their checks and every fault fails one.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import sys
 import torch
 
 import chip_smoke as cs
-from neuroclear_tpu_torch.ops import build, conv3x3, inorm, wconv
+from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
 
 
 def _dx_zero_on_call(n):
@@ -161,6 +165,33 @@ FAULTS = [
 ]
 
 
+def _angle_sign_flipped(f):
+    return lambda w, h, angle: f(w, h, -angle)
+
+
+def _inverse_transposed(f):
+    def fn(w, h, angle):
+        g = f(w, h, angle)
+        i00, i01, i02, i10, i11, i12 = g.inv
+        return g._replace(inv=(i00, i10, i02, i01, i11, i12))
+    return fn
+
+
+SAMPLER_FAULTS = [("rotation angle's sign flipped", _angle_sign_flipped),
+                  ("inverse affine transposed", _inverse_transposed)]
+
+
+def rotation_failures(label, vol, dev, seed) -> int:
+    """1 if the smoke's rotation check fails, else 0."""
+    try:
+        cs.check_rotation(vol, dev, seed)
+    except AssertionError as e:
+        cs.log(f"== {label}: the rotation check fails: {e}")
+        return 1
+    cs.log(f"== {label}: the rotation check passes")
+    return 0
+
+
 def kernel_checks(dev, seed) -> list:
     """The smoke's kernel checks (the kernels phases' W-pair forward and norm
     at the tile batch's shapes, dx, dw and the norm at the 108^3 step's),
@@ -206,8 +237,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     vol = cs.synthetic_volume(args.seed, cs.TRAIN_VOLUME)
+    ok = rotation_failures("sampler as it is", vol, dev, args.seed) == 0
+    for label, wrap in SAMPLER_FAULTS:
+        with _swapped(augment, "rotation_geometry", wrap):
+            ok &= rotation_failures(label, vol, dev, args.seed) > 0
     stats_libs = _build_stats_faults()
-    ok = run("as it is", args.seed, vol, dev) == 0
+    ok &= run("as it is", args.seed, vol, dev) == 0
     faults = [(label, _swapped(module, name, wrap)) for label, module, name, wrap in FAULTS]
     faults += [(label, _stats_kernel(path)) for (label, _, _), path in zip(STATS_FAULTS,
                                                                            stats_libs)]

@@ -1,18 +1,20 @@
-"""Training data: ONE volume on the device, each sample a fresh random crop
-of it, the port of ``neuroclear_tpu/data/singlevolume_dataset.py``'s device
-path for the preprocess
-``randomcrop_randomflip_addColorChannel_addBatchChannel``.  Rotations
-(``random3Drotate``, ``random90rotate``) are not ported yet (ROADMAP.md)."""
+"""Training data: ONE volume on the device, each sample a fresh random
+augmentation of it, the port of ``neuroclear_tpu/data/singlevolume_dataset.py``'s
+device path (``sample``): the preprocess tokens ``random3Drotate`` or
+``random90rotate``, ``randomcrop``, ``randomflip``, ``addColorChannel`` and
+``addBatchChannel``.  Both rotations together leave the JAX package's device
+path for its host cv2 chain, which the port does not have: that is refused."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.augment import crop_draws, sample_crop
+from ..ops.augment import crop_draws, draw_angle, sample_crop, sample_rotated_crop
 from ..utils.imageops import dtype_inv_scale
 
-PORTED_TOKENS = {"randomcrop", "randomflip", "addColorChannel", "addBatchChannel"}
+PORTED_TOKENS = {"random3Drotate", "random90rotate", "randomcrop", "randomflip",
+                 "addColorChannel", "addBatchChannel"}
 # numpy dtype of the volume -> the dtype it is uploaded in
 _UPLOAD = {np.dtype(np.uint8): np.uint8, np.dtype(np.uint16): np.int32,
            np.dtype(np.float32): np.float32}
@@ -24,8 +26,12 @@ def check_preprocess(preprocess: str) -> set:
     missing = tokens - PORTED_TOKENS
     if missing:
         raise NotImplementedError(f"preprocess {sorted(missing)} is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 6); this port takes "
-                                  "randomcrop_randomflip_addColorChannel_addBatchChannel")
+                                  "(ROADMAP.md, queue 1); this port takes the tokens "
+                                  f"{sorted(PORTED_TOKENS)}")
+    if {"random3Drotate", "random90rotate"} <= tokens:
+        raise NotImplementedError("random3Drotate with random90rotate runs the JAX "
+                                  "package's host cv2 chain, which is not ported "
+                                  "(ROADMAP.md, queue 1); choose one rotation")
     if "randomcrop" not in tokens:
         raise NotImplementedError("the port samples random crops only (randomcrop)")
     return tokens
@@ -45,12 +51,38 @@ class SingleVolumeDataset:
         tokens = check_preprocess(preprocess)
         self.crop_size = tuple(int(c) for c in crop_size)
         self.flip = "randomflip" in tokens
+        self.rotate = ("any" if "random3Drotate" in tokens
+                       else "90" if "random90rotate" in tokens else None)
+        if self.rotate == "any":
+            # the worst-case inscribed rectangle (45 degrees) must still hold
+            # the crop, checked up front as the JAX dataset does
+            z, y, x = vol.shape
+            worst = int(min(y, x) / np.sqrt(2.0))
+            cz, cy, cx = self.crop_size
+            if not (z >= cz and worst >= cy and worst >= cx):
+                raise ValueError(f"crop {list(crop_size)} cannot fit the worst-case rotated "
+                                 f"volume extents ({z},{worst},{worst})")
         self.inv_scale = dtype_inv_scale(vol.dtype)
         self.shape = vol.shape
         self.vol = torch.from_numpy(np.ascontiguousarray(vol, _UPLOAD[vol.dtype])).to(device)
 
-    def sample(self, generator: torch.Generator) -> torch.Tensor:
-        offsets, flips = crop_draws(self.shape, self.crop_size, generator)
+    def draws(self, generator: torch.Generator) -> tuple:
+        """``augment_core``'s draws in its order: (angle or None, offsets,
+        flips)."""
+        angle = draw_angle(self.rotate, generator)
+        offsets, flips = crop_draws(self.shape, self.crop_size, generator, angle)
         if not self.flip:
             flips = (False, False, False)
-        return sample_crop(self.vol, offsets, self.crop_size, self.inv_scale, flips)[None, ..., None]
+        return angle, offsets, flips
+
+    def crop(self, angle, offsets, flips) -> torch.Tensor:
+        """The (1, cz, cy, cx, 1) crop for given draws."""
+        if angle is None:
+            out = sample_crop(self.vol, offsets, self.crop_size, self.inv_scale, flips)
+        else:
+            out = sample_rotated_crop(self.vol, angle, offsets, self.crop_size,
+                                      self.inv_scale, flips)
+        return out[None, ..., None]
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        return self.crop(*self.draws(generator))

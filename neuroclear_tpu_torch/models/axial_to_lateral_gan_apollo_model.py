@@ -13,10 +13,13 @@ step mirrors ``make_apollo_step``:
      fake and reconstruction, the D gradients;
   3. Adam on both (the D gradients do not depend on the G update, so the
      order of the two updates does not matter).
-Parameters and Adam stay in f32; the nets compute in ``--precision``.  The
-probe draws (the MIP depth and the 18 indices or window starts) are an input
-of the step: the trainer draws them from its generator with
-``draw_probes``, a test hands in the ones the JAX keys make.
+Parameters and Adam stay in f32; the nets compute in ``--precision``; each
+step's learning rate is the base rate times the schedule's scale
+(``setup``'s two ``LRController``s, stepped by ``update_learning_rate``).
+The probe draws (the MIP depth and the 18 indices or window starts) are an
+input of the step: the trainer draws them from its generator with
+``draw_probes``, a test hands in the ones the JAX keys make.  Checkpoints
+carry the optimizer state in the JAX layout (``models/base_model.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..nn import factory
+from ..nn.schedulers import LRController
 from ..nn.losses import l1_loss
 from ..utils.weights import count_params, kaiming_flat, params_from_numpy
 from . import base_model
@@ -95,6 +99,30 @@ class ApolloModel:
         self.d_params = [p for n in D_NAMES for p in self.nets[n].parameters()]
         self.optim_g = gc.make_adam(self.g_params, opt.lr, opt.beta1)
         self.optim_d = gc.make_adam(self.d_params, opt.lr, opt.beta1)
+        self.base_lr = opt.lr
+        self.lr_controllers = []
+        self.visuals = {}
+
+    # ------------------------------------------------------- setup and lr
+
+    def setup(self, opt) -> None:
+        """``BaseModel.setup``: the two learning-rate controllers, then with
+        ``--continue_train`` the checkpoint ``iter_{load_iter}`` (or
+        ``--epoch``) with its optimizer state."""
+        self.lr_controllers = [LRController(opt.lr_policy, opt) for _ in range(2)]
+        if opt.continue_train:
+            self.load_networks(f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch)
+        self.print_networks(opt.verbose)
+
+    @property
+    def lr_scale(self) -> float:
+        return self.lr_controllers[0].scale if self.lr_controllers else 1.0
+
+    def update_learning_rate(self) -> None:
+        """Step the schedules (the plateau policy sees the metric 0, as the
+        JAX model passes it)."""
+        for c in self.lr_controllers:
+            c.step(0.0)
 
     # ------------------------------------------------------------- weights
 
@@ -110,12 +138,28 @@ class ApolloModel:
             net = self.nets[name]
             net.load_state_dict(params_from_numpy(flat, net))
 
-    def save_networks(self, suffix: str) -> list:
-        return base_model.save_networks(self.nets, self.save_dir, suffix)
+    def _optim_groups(self):
+        """The two Adams in the JAX state's order ("D", then "G")."""
+        return [(self.optim_d, {n: self.nets[n] for n in D_NAMES}),
+                (self.optim_g, {n: self.nets[n] for n in G_NAMES})]
 
-    def print_networks(self) -> None:
+    def save_networks(self, suffix: str) -> list:
+        """The six nets and ``{suffix}_optim.npz``; returns the paths."""
+        paths = base_model.save_networks(self.nets, self.save_dir, suffix)
+        path = os.path.join(self.save_dir, f"{suffix}_optim.npz")
+        base_model.save_optim(path, self._optim_groups(), self.lr_controllers)
+        return paths + [path]
+
+    def load_networks(self, suffix: str) -> None:
+        base_model.load_networks(self.nets, self.save_dir, suffix)
+        base_model.load_optim(os.path.join(self.save_dir, f"{suffix}_optim.npz"),
+                              self._optim_groups(), self.lr_controllers)
+
+    def print_networks(self, verbose: bool = False) -> None:
         print("---------- Networks initialized -------------", flush=True)
         for name in MODEL_NAMES:
+            if verbose:
+                print(self.nets[name], flush=True)
             print(f"[Network {name}] Total number of parameters : "
                   f"{count_params(self.nets[name]) / 1e6:.3f} M", flush=True)
         print("-----------------------------------------------", flush=True)
@@ -200,16 +244,22 @@ class ApolloModel:
         return losses, fake, rec, g_grads, d_grads
 
     def apply_gradients(self, g_grads, d_grads) -> None:
-        """Adam on both parameter sets."""
+        """Adam on both parameter sets at the base rate times the schedule's
+        scale."""
+        lr = self.base_lr * self.lr_scale
         for params, grads, optim in ((self.g_params, g_grads, self.optim_g),
                                      (self.d_params, d_grads, self.optim_d)):
+            for group in optim.param_groups:
+                group["lr"] = lr
             for p, g in zip(params, grads):
                 p.grad = g
             optim.step()
             optim.zero_grad(set_to_none=True)
 
     def optimize_parameters(self, real: torch.Tensor, draws: ProbeDraws):
-        """One training step: (losses, fake, rec)."""
+        """One training step: (losses, fake, rec); the three volumes are
+        kept as the visuals, on the device."""
         losses, fake, rec, g_grads, d_grads = self.gradients(real, draws)
         self.apply_gradients(g_grads, d_grads)
+        self.visuals = {"real": real, "fake": fake, "rec": rec}
         return losses, fake, rec

@@ -1,24 +1,59 @@
-"""The crop-and-flip branch of ``neuroclear_tpu/ops/augment.py``
-(``augment_core`` with ``do_rotate=False``, ``do_rot90=False``): a random
-crop of a (Z, Y, X) volume, scaled by ``dtype_inv_scale``, then a flip of
-each axis with probability 1/2.  Rotation is not ported yet (ROADMAP.md)."""
+"""The augmentation chain of ``neuroclear_tpu/ops/augment.py``
+(``augment_core`` and ``sample_rotated_crop``): a random crop of a (Z, Y, X)
+volume, optionally rotated in XY (``random3Drotate``: an angle uniform on
+{0..359} degrees; ``random90rotate``: one of +-90, +-180, +-270) and cropped
+to the rotated slice's largest inscribed rectangle, scaled by
+``dtype_inv_scale``, then flipped along each axis with probability 1/2.
+
+The draws come from an explicit ``torch.Generator`` as host ints and the
+rotation's geometry is host float32 math (``ops/rotation.py``), so the
+sampler reads nothing back from the device: the crop is one bilinear gather
+from the (cz, Y, X) slab, run on the device in float32 from host scalars.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from .rotation import rotation_geometry
 
-def crop_draws(vol_shape, crop_size, generator: torch.Generator):
+ROT90_ANGLES = (-90.0, 90.0, -180.0, 180.0, -270.0, 270.0)  # augment_core's order
+
+
+def draw_angle(rotate: str | None, generator: torch.Generator):
+    """``augment_core``'s angle draw: None without rotation, an int degree
+    for ``rotate="any"``, one of ``ROT90_ANGLES`` for ``rotate="90"``."""
+    if rotate is None:
+        return None
+    if rotate == "any":
+        return int(torch.randint(0, 360, (), generator=generator))
+    if rotate == "90":
+        return ROT90_ANGLES[int(torch.randint(0, 6, (), generator=generator))]
+    raise ValueError(f"rotate {rotate!r}: None, 'any' or '90'")
+
+
+def crop_draws(vol_shape, crop_size, generator: torch.Generator, angle=None):
     """Crop offsets uniform on [0, extent - crop] (inclusive, as
-    ``augment_core`` draws them) and three flips, each with probability 1/2,
-    from ``generator``."""
+    ``augment_core`` draws them; for a rotation the extents in Y and X are
+    the inscribed crop's) and three flips, each with probability 1/2, from
+    ``generator``."""
+    extents = vol_shape
+    if angle is not None:
+        g = rotation_geometry(vol_shape[2], vol_shape[1], angle)
+        extents = (vol_shape[0], g.crop_h, g.crop_w)
     offsets = []
-    for extent, c in zip(vol_shape, crop_size):
+    for extent, c in zip(extents, crop_size):
         if c > extent:
-            raise ValueError(f"crop {tuple(crop_size)} does not fit the volume {tuple(vol_shape)}")
+            raise ValueError(f"crop {tuple(crop_size)} does not fit the volume "
+                             f"{tuple(vol_shape)} rotated by {angle or 0} degrees")
         offsets.append(int(torch.randint(0, extent - c + 1, (), generator=generator)))
     flips = [bool(f) for f in torch.rand(3, generator=generator) < 0.5]
     return tuple(offsets), tuple(flips)
+
+
+def _flip(out: torch.Tensor, flips) -> torch.Tensor:
+    dims = [d for d, f in enumerate(flips) if f]
+    return torch.flip(out, dims) if dims else out
 
 
 def sample_crop(vol: torch.Tensor, offsets, crop_size, inv_scale: float,
@@ -29,5 +64,38 @@ def sample_crop(vol: torch.Tensor, offsets, crop_size, inv_scale: float,
     z0, y0, x0 = offsets
     cz, cy, cx = crop_size
     out = vol[z0:z0 + cz, y0:y0 + cy, x0:x0 + cx].float() * inv_scale
-    dims = [d for d, f in enumerate(flips) if f]
-    return torch.flip(out, dims) if dims else out
+    return _flip(out, flips)
+
+
+def sample_rotated_crop(vol: torch.Tensor, angle, offsets, crop_size, inv_scale: float,
+                        flips=(False, False, False)) -> torch.Tensor:
+    """The crop at ``offsets`` of the volume rotated by ``angle`` degrees in
+    XY and cropped to its inscribed rectangle, times ``inv_scale``, flipped
+    along each axis whose flag is set: ``sample_rotated_crop(rotate=True)``
+    and the flips of ``augment_core``.  Each output voxel is the bilinear
+    mix of four source voxels, each tap's index clipped to the volume, as
+    the JAX package computes it (its local gather window only bounds the
+    gather's source: the samples are the same)."""
+    z_n, y_n, x_n = vol.shape
+    g = rotation_geometry(x_n, y_n, angle)
+    z0, y0, x0 = offsets
+    cz, cy, cx = crop_size
+    i00, i01, i02, i10, i11, i12 = (float(c) for c in g.inv)
+    dev = vol.device
+    # canvas coordinates of the crop (exact integers in f32), then source ones
+    py0, px0 = g.y1 + y0, g.x1 + x0
+    py = torch.arange(py0, py0 + cy, device=dev, dtype=torch.float32)[:, None]
+    px = torch.arange(px0, px0 + cx, device=dev, dtype=torch.float32)[None, :]
+    sx = px * i00 + py * i01 + i02  # (cy, cx)
+    sy = px * i10 + py * i11 + i12
+    xf, yf = torch.floor(sx), torch.floor(sy)
+    wx, wy = sx - xf, sy - yf
+    xa = xf.long().clamp_(0, x_n - 1)
+    xb = (xa + 1).clamp_(max=x_n - 1)
+    ya = yf.long().clamp_(0, y_n - 1) * x_n
+    yb = (ya + x_n).clamp_(max=(y_n - 1) * x_n)
+    taps = torch.stack([ya + xa, ya + xb, yb + xa, yb + xb]).view(-1)
+    slab = vol.narrow(0, z0, cz).reshape(cz, y_n * x_n)
+    v00, v01, v10, v11 = slab.index_select(1, taps).view(cz, 4, cy, cx).float().unbind(1)
+    out = ((v00 * (1 - wx) + v01 * wx) * (1 - wy) + (v10 * (1 - wx) + v11 * wx) * wy) * inv_scale
+    return _flip(out, flips)

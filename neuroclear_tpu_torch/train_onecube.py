@@ -1,126 +1,93 @@
-"""Single-volume Apollo trainer on the card: the port's counterpart of
-``train_onecube.py`` for the production configuration.
+"""Single-volume Apollo trainer on the card: the port of ``train_onecube.py``.
 
-    python -m neuroclear_tpu_torch.train_onecube --dataroot <volume.npy or dir> \
-        --name <exp> --checkpoints_dir <dir> \
-        --preprocess randomcrop_randomflip_addColorChannel_addBatchChannel \
-        --model axial_to_lateral_gan_apollo --netG unet_deconv \
-        --netG_B deep_linear_gen --netD basic --gan_mode lsgan --init_type kaiming \
-        --norm instance --lambda_A 5 --crop_size 108 108 108 --lambda_plane 1 1 1 \
-        --lr_policy constant --randomize_projection_depth --projection_depth 10 \
-        --precision bfloat16 --save_by_iter --save_latest_freq 500 --max_iters 1000
+The production command (the JAX package's ``train_onecube.py`` example) runs
+unchanged:
 
-It reads a (z, y, x) ``.npy`` volume, keeps it on the device, and for each
-iteration draws a crop (random offsets and flips), takes one Apollo step
-(models/axial_to_lateral_gan_apollo_model.py), prints the eleven losses every
-``--print_freq`` iterations, and every ``--save_latest_freq`` iterations and
-at the end writes ``{suffix}_net_{NAME}.npz`` for the six nets in the JAX
-package's format under ``<checkpoints_dir>/<name>/``.  It runs on the card
-unless ``--device cpu`` is given.  Rotations in ``--preprocess``, ``--remat``,
-``--grad_accum`` > 1, optimizer-state save and resume, LR policies other than
-``constant``, TIFF input and models other than Apollo are not ported yet
-(ROADMAP.md).  The flags' defaults are the JAX CLI's, except where the port
-does not take the JAX default (``--model``, ``--init_type``, ``--lr_policy``,
-``--crop_size``, ``--preprocess``): there they are the production
-configuration's; ``--precision`` defaults to bfloat16, the JAX package's
-training benchmark default.
+    python -m neuroclear_tpu_torch.train_onecube --dataroot <dir> \
+        --dataset_mode singlevolume \
+        --preprocess random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel \
+        --model axial_to_lateral_gan_apollo --netG unet_deconv --netG_B deep_linear_gen \
+        --netD basic --gan_mode lsgan --init_type kaiming --norm instance \
+        --batch_size 1 --lambda_A 5 --crop_size 108 108 108 --lambda_plane 1 1 1 \
+        --save_by_iter --save_latest_freq 500 --lr_policy constant \
+        --randomize_projection_depth --projection_depth 10 --display_histogram --add_date
+
+and resumes with ``--continue_train --load_iter N`` (the same command and
+``--name``, without ``--add_date``'s new stamp).  It reads the volume (the
+first TIFF or ``.npy`` in ``--dataroot``), keeps it on the device, and for
+each iteration draws an augmented crop (rotation, offsets and flips), takes
+one Apollo step (models/axial_to_lateral_gan_apollo_model.py) at the
+schedule's learning rate, and steps the schedule.  Every ``--print_freq``
+iterations it reads the eleven losses back (the one device sync of the
+loop), prints them and appends them to ``loss_log.txt``; every
+``--save_latest_freq`` iterations and at ``--max_iters`` it writes
+``{suffix}_net_{NAME}.npz`` for the six nets and ``{suffix}_optim.npz`` in
+the JAX package's formats under ``<checkpoints_dir>/<name>/``, with TIFF
+snapshots of the visuals.  The iteration count on resume follows the JAX
+trainer (``--load_iter N`` resumes at N + 1, so the names it writes are the
+JAX trainer's).  It runs on the card unless ``--device cpu`` is given.
+``--remat``, ``--grad_accum`` > 1 and models other than Apollo are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-import argparse
+import math
 import os
 import sys
+import threading
 import time
 
-import numpy as np
 import torch
 
 from . import resolve_device
-from .data.singlevolume_dataset import SingleVolumeDataset, check_preprocess
+from .data.image_folder import make_dataset
+from .data.singlevolume_dataset import SingleVolumeDataset
 from .models.axial_to_lateral_gan_apollo_model import LOSS_NAMES, ApolloModel
-
-NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
-
-
-def load_volume(path: str) -> np.ndarray:
-    """The (z, y, x) volume of a ``.npy`` file, or of the one ``.npy`` file
-    in a directory."""
-    if os.path.isdir(path):
-        files = sorted(f for f in os.listdir(path) if f.endswith(".npy"))
-        if len(files) != 1:
-            raise FileNotFoundError(f"{path} must hold exactly one .npy volume, found {files}")
-        path = os.path.join(path, files[0])
-    vol = np.load(path)
-    if vol.ndim != 3:
-        raise ValueError(f"{path}: expected a (z, y, x) volume, got shape {vol.shape}")
-    return vol
+from .options import train_options
+from .utils import tiffio
+from .utils.visualizer import Visualizer
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
-                                formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    p.add_argument("--dataroot", required=True,
-                   help="training volume: a .npy file, or a directory holding one")
-    p.add_argument("--name", default="experiment_name", help="experiment name")
-    p.add_argument("--checkpoints_dir", default="./checkpoints")
-    p.add_argument("--dataset_mode", default="singlevolume")
-    p.add_argument("--preprocess",
-                   default="randomcrop_randomflip_addColorChannel_addBatchChannel")
-    p.add_argument("--model", default="axial_to_lateral_gan_apollo")
-    p.add_argument("--netG", default="unet_deconv")
-    p.add_argument("--netG_B", default="deep_linear_gen")
-    p.add_argument("--netD", default="basic")
-    p.add_argument("--norm", default="instance")
-    p.add_argument("--init_type", default="kaiming")
-    p.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
-    p.add_argument("--lambda_A", type=float, default=10.0)
-    p.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1])
-    p.add_argument("--randomize_projection_depth", action="store_true")
-    p.add_argument("--projection_depth", type=int, default=10)
-    p.add_argument("--beta1", type=float, default=0.1)
-    p.add_argument("--lr", type=float, default=0.0001)
-    p.add_argument("--lr_policy", default="constant")
-    p.add_argument("--batch_size", type=int, default=1)
-    p.add_argument("--crop_size", type=int, nargs=3, default=[108, 108, 108])
-    p.add_argument("--precision", default="bfloat16", choices=["float32", "bfloat16"],
-                   help="compute dtype; parameters and Adam stay float32")
-    p.add_argument("--max_iters", type=int, default=0,
-                   help="stop after this many iterations (0 = run until stopped)")
-    p.add_argument("--print_freq", type=int, default=500)
-    p.add_argument("--save_latest_freq", type=int, default=500)
-    p.add_argument("--save_by_iter", action="store_true",
-                   help="name checkpoints iter_<N> instead of overwriting 'latest'")
-    p.add_argument("--seed", type=int, default=0,
-                   help="seeds the weights, the crops and the probe draws")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--remat", action="store_true", help=f"activation recomputation {NOT_PORTED}")
-    p.add_argument("--grad_accum", type=int, default=1, help=f"values > 1 {NOT_PORTED}")
-    p.add_argument("--continue_train", action="store_true",
-                   help=f"optimizer-state save and resume {NOT_PORTED}")
-    return p
+def volume_path(dataroot: str) -> str:
+    """The training volume: ``dataroot`` itself if it is a file, else the
+    first image file under it in sorted order (``make_dataset(dataroot,
+    1)[0]``, as the JAX dataset picks it)."""
+    if os.path.isfile(dataroot):
+        return dataroot
+    found = make_dataset(dataroot, 1)
+    if not found:
+        raise FileNotFoundError(f"{dataroot} holds no volume (TIFF or .npy)")
+    return found[0]
 
 
-def check_options(opt) -> None:
-    """Raise NotImplementedError for every option this slice does not port."""
-    refused = [
-        (opt.model != "axial_to_lateral_gan_apollo", f"--model {opt.model}"),
-        (opt.dataset_mode != "singlevolume", f"--dataset_mode {opt.dataset_mode}"),
-        (opt.remat, "--remat"),
-        (opt.grad_accum > 1, "--grad_accum > 1"),
-        (opt.continue_train, "--continue_train (optimizer-state save and resume)"),
-        (opt.lr_policy != "constant", f"--lr_policy {opt.lr_policy}"),
-        (opt.batch_size != 1, "--batch_size > 1"),
-        (opt.init_type != "kaiming", f"--init_type {opt.init_type}"),
-        (opt.netD != "basic", f"--netD {opt.netD}"),
-        (opt.norm != "instance", f"--norm {opt.norm}"),
-    ]
-    for bad, what in refused:
-        if bad:
-            raise NotImplementedError(f"{what} {NOT_PORTED}")
-    check_preprocess(opt.preprocess)
-    if str(opt.dataroot).lower().endswith((".tif", ".tiff")):
-        raise NotImplementedError(f"TIFF input {NOT_PORTED}; pass a .npy volume")
+class Watchdog:
+    """Calls ``expire`` (by default: exit 42) when ``beat`` has not been
+    called for ``secs`` seconds; armed by the first beat, so start-up (the
+    volume upload, a checkpoint load, the kernels' build) is not timed."""
+
+    def __init__(self, secs: float, expire=None):
+        self.secs, self.last = secs, 0.0
+        self.expire = expire or self._exit
+        self._stop = threading.Event()
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    def _exit(self):
+        print(f"watchdog: no progress for {self.secs}s; exiting 42 (resume with "
+              "--continue_train)", flush=True)
+        os._exit(42)
+
+    def _watch(self):
+        while not self._stop.wait(min(30.0, self.secs)):
+            if self.last and time.time() - self.last > self.secs:
+                self.expire()
+                return
+
+    def beat(self):
+        self.last = time.time()
+
+    def stop(self):
+        self._stop.set()
 
 
 def _mark(device: torch.device):
@@ -138,58 +105,108 @@ def _seconds(a, b) -> float:
     return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
 
 
+def setup(opt):
+    """The trainer's pieces for parsed options: (device, dataset, model);
+    with ``--continue_train`` the model holds the checkpoint and its
+    optimizer state."""
+    device = resolve_device(opt.device)
+    # f32 convs in full f32, as the JAX package's HIGHEST precision
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_options.print_options(opt)
+    path = volume_path(opt.dataroot)
+    vol = tiffio.imread(path)
+    dataset = SingleVolumeDataset(vol, opt.crop_size, opt.preprocess, device)
+    print(f"volume {path} {vol.shape} {vol.dtype} on {device}; crops "
+          f"{tuple(opt.crop_size)} {opt.precision}; augmentation: on-device chain "
+          f"(rotation {dataset.rotate})", flush=True)
+    model = ApolloModel(opt, device)
+    model.init_weights(opt.seed)
+    model.setup(opt)
+    return device, dataset, model
+
+
 def main(argv=None) -> dict:
     """Train.  The losses are read back (a device sync) only every
     ``--print_freq`` iterations and at the end, so the host queues a step
     while the card runs the one before.  With ``--max_iters`` N, returns
     {"losses": one {name: float} per iteration, "step_seconds": seconds of
     each iteration on the device's clock (from the end of one to the end of
-    the next), "checkpoints": paths written, "device": the device}; without
-    it the run keeps no history and does not return."""
-    opt = build_parser().parse_args(argv)
-    check_options(opt)
-    device = resolve_device(opt.device)
-    # f32 convs in full f32, as the JAX package's HIGHEST precision
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    vol = load_volume(opt.dataroot)
-    dataset = SingleVolumeDataset(vol, opt.crop_size, opt.preprocess, device)
-    model = ApolloModel(opt, device)
-    model.init_weights(opt.seed)
-    model.print_networks()
+    the next), "checkpoints": paths written, "visuals": the snapshot paths,
+    "device", "model": the model after the last iteration, "total_iters"};
+    without it the run keeps no history and does not return."""
+    opt = train_options.parse(argv)
+    device, dataset, model = setup(opt)
+    visualizer = Visualizer(opt)
     gen = torch.Generator().manual_seed(opt.seed)
-    print(f"volume {vol.shape} {vol.dtype} on {device}; crops {tuple(opt.crop_size)} "
-          f"{opt.precision}", flush=True)
+    loaded_iter = opt.load_iter + 1 if opt.load_iter > 0 else 0
+    total_iters = loaded_iter
+    visualizer.display_model_hyperparameters()
+    watchdog = Watchdog(opt.watchdog_secs) if opt.watchdog_secs > 0 else None
 
     # with --max_iters, each step's losses and end mark, kept without a sync
     log = torch.empty((opt.max_iters, len(LOSS_NAMES)), device=device)
     marks = [_mark(device)]
-    window, window_it, paths = marks[0], 0, []
-    it = 0
-    while not opt.max_iters or it < opt.max_iters:
+    paths, snapshots, t_data = [], [], 0.0
+    iter_data_time = time.time()
+    while True:
         real = dataset.sample(gen)
         draws = model.draw_probes(opt.crop_size, gen)
+        iter_start_time = time.time()
+        if (total_iters - loaded_iter) % opt.print_freq == 0:
+            t_data = iter_start_time - iter_data_time
+        total_iters += opt.batch_size
         step_losses, _, _ = model.optimize_parameters(real, draws)
         values = torch.stack([step_losses[n] for n in LOSS_NAMES])
-        end = _mark(device)
         if opt.max_iters:
-            log[it] = values
-            marks.append(end)
-        it += 1
-        last = it == opt.max_iters
-        if it % opt.print_freq == 0 or last:
-            msg = " ".join(f"{k}: {v:.4g}" for k, v in zip(LOSS_NAMES, values.tolist()))
-            per_step = _seconds(window, end) / (it - window_it)
-            print(f"(iters: {it}, time: {per_step:.3f}) {msg}", flush=True)
-            window, window_it = end, it
-        if it % opt.save_latest_freq == 0 or last:
-            suffix = f"iter_{it}" if opt.save_by_iter else "latest"
-            paths += model.save_networks(suffix)
-            print(f"saving the model at iteration {it} ({suffix})", flush=True)
+            log[total_iters - loaded_iter - 1] = values
+            marks.append(_mark(device))
+
+        if total_iters % opt.display_freq == 0:
+            visualizer.display_current_results(model.visuals, total_iters)
+
+        if total_iters % opt.print_freq == 0:
+            print("----------------------------------")
+            print(f"exp name: {opt.name}, device: {device}")
+            print("----------------------------------")
+            losses = dict(zip(LOSS_NAMES, values.tolist()))  # the device sync
+            if opt.nan_check and not all(math.isfinite(v) for v in losses.values()):
+                print(f"NaN/Inf loss detected at iter {total_iters}: {losses}", flush=True)
+                model.save_networks("nan_debug")
+                raise SystemExit(3)
+            t_comp = (time.time() - iter_start_time) / opt.batch_size
+            visualizer.print_current_losses(1, total_iters, losses, t_comp, t_data)
+            visualizer.plot_current_losses(total_iters, losses)
+
+        if total_iters % opt.save_latest_freq == 0:
+            print("----------------------------------")
+            print(f"saving the latest model (iteration {total_iters})")
+            paths += model.save_networks(f"iter_{total_iters}" if opt.save_by_iter
+                                         else "latest")
+            print(f"saving the current histogram (iteration {total_iters})")
+            visualizer.display_current_histogram(model.visuals, total_iters)
+            print(f"saving the current visuals (iteration {total_iters})")
+            snapshots += visualizer.save_current_visuals(model.visuals, total_iters)
+            print("----------------------------------", flush=True)
+
+        model.update_learning_rate()
+        iter_data_time = time.time()
+        if watchdog:
+            watchdog.beat()
+
+        if opt.max_iters and total_iters - loaded_iter >= opt.max_iters:
+            print(f"reached --max_iters {opt.max_iters}; saving and exiting", flush=True)
+            paths += model.save_networks(f"iter_{total_iters}" if opt.save_by_iter
+                                         else "latest")
+            break
+    if watchdog:
+        watchdog.stop()
+    visualizer.close()
     losses = [dict(zip(LOSS_NAMES, row)) for row in log.tolist()]
     secs = [_seconds(a, b) for a, b in zip(marks, marks[1:])]
-    return {"losses": losses, "step_seconds": secs, "checkpoints": paths, "device": device}
+    return {"losses": losses, "step_seconds": secs, "checkpoints": paths,
+            "visuals": snapshots, "device": device, "model": model,
+            "total_iters": total_iters}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Host-side image helpers, copied from ``neuroclear_tpu/utils/imageops.py``
-(``pad_for_dicing``, ``normalize``, ``standardize``, ``rescale_intensity``,
-``get_psnr``, ``get_ssim``) and ``neuroclear_tpu/ops/augment.py``
+(``tensor2im``, ``pad_for_dicing``, ``normalize``, ``standardize``,
+``rescale_intensity``, ``get_psnr``, ``get_ssim``) and ``neuroclear_tpu/ops/augment.py``
 (``dtype_inv_scale``), in numpy float64 as there."""
 
 from __future__ import annotations
@@ -19,6 +19,18 @@ def pad_for_dicing(image: np.ndarray, roi_size: int, overlap: int = 0) -> np.nda
         pads.append(step * counts + roi_size - dim)
     z_pad, y_pad, x_pad = pads[2], pads[1], pads[0]
     return np.pad(image, ((0, z_pad), (0, y_pad), (0, x_pad)))
+
+
+def tensor2im(x, imtype=np.uint16) -> np.ndarray:
+    """Array in [0,1] -> clipped integer image."""
+    img = np.asarray(x, dtype=np.float32)
+    if imtype == np.uint8:
+        img = np.clip(img, 0, 1) * (2 ** 8 - 1.0)
+        img = np.clip(img, 0, 255)
+    elif imtype == np.uint16:
+        img = np.clip(img, 0, 1) * (2 ** 16 - 1.0)
+        img = np.clip(img, 0, 2 ** 16 - 1)
+    return img.astype(imtype)
 
 
 def dtype_inv_scale(dtype) -> float:

@@ -1,0 +1,137 @@
+"""The trainer's reporting, the port of ``neuroclear_tpu/utils/visualizer.py``
+for the single-volume trainer: console loss lines and ``loss_log.txt`` in the
+JAX package's format, TIFF snapshots of the visuals (through the port's own
+codec, ``utils/tiffio.py``), and TensorBoard scalars, slice and MIP figures,
+histograms and the options where ``torch.utils.tensorboard`` (and, for the
+figures, ``matplotlib``) import.  A sink that does not import is reported as
+off once; it is never a stand-in for anything else, and nothing here catches
+an error of the training step.  The visuals are device tensors, read back
+only when a sink takes them.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+from . import tiffio
+from .imageops import tensor2im
+
+
+def _to_zyx(image) -> np.ndarray:
+    """A (N, Z, Y, X, C) visual -> its first (Z, Y, X) volume, f32 numpy."""
+    img = image.detach().float().cpu().numpy() if hasattr(image, "detach") else np.asarray(image)
+    if img.ndim == 5:
+        return img[0, ..., 0]
+    if img.ndim == 4:
+        return img[0] if img.shape[-1] != 1 else img[..., 0]
+    return img
+
+
+class Visualizer:
+    def __init__(self, opt):
+        self.opt = opt
+        self.name = opt.name
+        self.display_histogram = opt.display_histogram
+        self.web_dir = os.path.join(opt.checkpoints_dir, opt.name, "web")
+        self.img_dir = os.path.join(self.web_dir, "images")
+        print(f"create web directory {self.web_dir}...")
+        os.makedirs(self.img_dir, exist_ok=True)
+
+        self.tb_writer = self.plt = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            print(f"tensorboard unavailable ({e}); TB logging disabled")
+        else:
+            self.tb_dir = os.path.join(opt.checkpoints_dir, "tensorboard")
+            print(f"create tensorboard directory {self.tb_dir}...")
+            self.tb_writer = SummaryWriter(os.path.join(self.tb_dir, self.name))
+            try:
+                import matplotlib
+            except ImportError as e:
+                print(f"matplotlib unavailable ({e}); TB figures disabled")
+            else:
+                matplotlib.use("Agg")
+                import matplotlib.pyplot as plt
+
+                self.plt = plt
+
+        self.log_name = os.path.join(opt.checkpoints_dir, opt.name, "loss_log.txt")
+        os.makedirs(os.path.dirname(self.log_name), exist_ok=True)
+        with open(self.log_name, "a") as log_file:
+            now = time.strftime("%c")
+            log_file.write(f"================ Training Loss ({now}) ================\n")
+
+    def display_current_results(self, visuals, epoch):
+        """Mid-volume slices and MIPs of each visual as TB figures."""
+        if self.tb_writer is None or self.plt is None:
+            return
+        plt = self.plt
+        for label, image in visuals.items():
+            vol = tensor2im(_to_zyx(image), imtype=np.uint8)
+            mid = vol.shape[0] // 2
+            fig_slice, axes = plt.subplots(1, 3, dpi=150)
+            for ax, (img, title) in zip(axes, [(vol[mid, :, :], "XY slice"),
+                                               (vol[:, mid, :], "XZ slice"),
+                                               (vol[:, :, mid], "YZ slice")]):
+                ax.set_axis_off()
+                ax.set_title(title)
+                ax.imshow(img, cmap="gray")
+            plt.close(fig_slice)
+            fig_mip, axes = plt.subplots(1, 3, dpi=150)
+            for ax, (img, title) in zip(axes, [(np.amax(vol, 0), "XY MIP"),
+                                               (np.amax(vol, 1), "XZ MIP"),
+                                               (np.amax(vol, 2), "YZ MIP")]):
+                ax.set_axis_off()
+                ax.set_title(title)
+                ax.imshow(img, vmax=256, cmap="gray")
+            plt.close(fig_mip)
+            self.tb_writer.add_figure("train_slice_images/" + label, fig_slice, epoch)
+            self.tb_writer.add_figure("train_mip_images/" + label, fig_mip, epoch)
+
+    def display_model_hyperparameters(self):
+        if self.tb_writer is None:
+            return
+        message = "--------------- Options ------------------  \n"
+        for k, v in sorted(vars(self.opt).items()):
+            message += "**{:>1}**: {:>10}  \n".format(str(k), str(v))
+        message += "----------------- End -------------------"
+        self.tb_writer.add_text("Model_hyperparameters", message)
+
+    def display_current_histogram(self, visuals, epoch):
+        if self.tb_writer is None or not self.display_histogram:
+            return
+        for label, image in visuals.items():
+            self.tb_writer.add_histogram("train_histograms/" + label, _to_zyx(image), epoch)
+
+    def save_current_visuals(self, visuals, epoch) -> list:
+        """Each visual as ``{epoch}_{label}.tif`` (uint8) under web/images;
+        returns the paths."""
+        paths = []
+        for label, image in visuals.items():
+            path = os.path.join(self.img_dir, f"{epoch}_{label}.tif")
+            tiffio.imwrite(path, tensor2im(_to_zyx(image), imtype=np.uint8))
+            paths.append(path)
+        return paths
+
+    def plot_current_losses(self, plot_count, losses):
+        if self.tb_writer is None:
+            return
+        for label, loss in losses.items():
+            self.tb_writer.add_scalar("train_by_epoch_progress/" + label, loss, plot_count)
+
+    def print_current_losses(self, epoch, epoch_progress, losses, t_comp, t_data):
+        message = ("(epoch: %d, epoch_progress: %d%%, iter time: %.3f, "
+                   "data load time: %.3f) " % (epoch, epoch_progress, t_comp, t_data))
+        for k, v in losses.items():
+            message += "%s: %.3f " % (k, v)
+        print(message, flush=True)
+        with open(self.log_name, "a") as log_file:
+            log_file.write(f"{message}\n")
+
+    def close(self):
+        if self.tb_writer is not None:
+            self.tb_writer.close()

@@ -45,18 +45,33 @@ def params_from_numpy(flat: dict, net: nn.Module) -> dict:
     return state
 
 
-def flat_from_module(net: nn.Module) -> dict:
-    """``net``'s parameters in the JAX flat format: {key: f32 numpy array},
-    conv kernels as (k..., I, O)."""
-    flat = {}
+def jax_named_params(net: nn.Module) -> list:
+    """(JAX flat key, to_jax, from_jax, parameter) of each of ``net``'s
+    parameters: ``to_jax`` maps a tensor of the parameter's shape to the JAX
+    layout, ``from_jax`` back."""
+    out = []
     for name, layer in net.named_modules():
         if not isinstance(layer, _LAYERS):
             continue
-        w = layer.weight_to_jax(layer.weight.detach())
-        flat[f"{name}.w"] = w.to("cpu", torch.float32).contiguous().numpy()
+        out.append((f"{name}.w", layer.weight_to_jax, layer.weight_from_jax, layer.weight))
         if layer.bias is not None:
-            flat[f"{name}.b"] = layer.bias.detach().to("cpu", torch.float32).numpy()
-    return flat
+            out.append((f"{name}.b", _same, torch.as_tensor, layer.bias))
+    return out
+
+
+def _same(t):
+    return t
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy (never a view of a live parameter)."""
+    return np.array(t.detach().to("cpu", torch.float32))
+
+
+def flat_from_module(net: nn.Module) -> dict:
+    """``net``'s parameters in the JAX flat format: {key: f32 numpy array},
+    conv kernels as (k..., I, O)."""
+    return {key: to_numpy(to_jax(p)) for key, to_jax, _, p in jax_named_params(net)}
 
 
 def kaiming_flat(net: nn.Module, seed: int) -> dict:

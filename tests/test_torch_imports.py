@@ -46,10 +46,13 @@ def test_port_and_chip_smoke_import_without_jax():
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded
         print(len(names), "modules")
+        print(" ".join(names))
     """)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 21, proc.stdout
+    assert n >= 39, proc.stdout
+    for name in ("ops.rotation", "nn.schedulers", "options.train_options", "utils.visualizer"):
+        assert f"neuroclear_tpu_torch.{name}" in proc.stdout.split(), name
 
 
 def test_infer_main_refuses_without_cuda(tmp_path):

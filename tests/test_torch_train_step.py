@@ -37,10 +37,11 @@ import torch
 
 from neuroclear_tpu.models import gan_common as jgc
 from neuroclear_tpu.models.axial_to_lateral_gan_apollo_model import make_apollo_step
+from neuroclear_tpu.models.base_model import BaseModel as JaxBaseModel
 from neuroclear_tpu.nn import factory as jax_factory
 from neuroclear_tpu.nn.core import flatten_params
 from neuroclear_tpu.nn.losses import l1_loss as jax_l1
-from neuroclear_tpu_torch import train_onecube
+from neuroclear_tpu_torch.options import train_options
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
     D_NAMES, D_PROBES, G_NAMES, G_PROBES, LOSS_NAMES, MODEL_NAMES, ApolloModel, ProbeDraws)
 from neuroclear_tpu_torch.utils.weights import params_from_numpy
@@ -57,7 +58,7 @@ def _is_pre_norm_bias(key: str) -> bool:
 
 
 def _opt(precision="float32"):
-    return train_onecube.build_parser().parse_args(
+    return train_options.build_parser().parse_args(
         ["--dataroot", "unused", "--gan_mode", "lsgan", "--lambda_A", str(LAMBDA_A),
          "--projection_depth", str(DEPTH),
          "--randomize_projection_depth", "--precision", precision, "--lr", str(LR),
@@ -138,6 +139,7 @@ def case():
     model.load_flats({n: flatten_params(params[n]) for n in MODEL_NAMES})
     losses, pfake, prec, gg, dg = model.gradients(torch.from_numpy(real), draws)
     return dict(nets=nets, params=params, rng=rng, real=real, draws=draws, aux=aux,
+                host_step=host_step,
                 fake=np.asarray(fake), rec=np.asarray(rec), g_acc=g_acc, d_acc=d_acc,
                 h_jax=h_jax, model=model, losses=losses, pfake=pfake.numpy(),
                 prec=prec.numpy(), pg=_port_flat(model, G_NAMES, gg),
@@ -211,6 +213,74 @@ def test_adam_matches_optax_on_identical_gradients(case):
             # atol 1e-5 * lr: the update of a parameter whose gradient is
             # near eps (the pre-norm biases' noise) divides by |g| + 1e-8
             np.testing.assert_allclose(port[k], ref, rtol=1e-6, atol=1e-5 * LR, err_msg=k)
+
+
+class _JaxCheckpoints(JaxBaseModel):
+    """The JAX package's checkpoint code (``BaseModel.save_networks`` and
+    ``_save_optim``, which its Apollo model inherits) around given
+    parameters and Adam state."""
+
+    def __init__(self, save_dir, params, opt_state):
+        self.save_dir, self.params, self.opt_state = str(save_dir), params, opt_state
+        self.model_names, self.lr_controllers = list(MODEL_NAMES), []
+
+    set_input = forward = optimize_parameters = None
+
+
+def test_next_step_from_a_jax_optimizer_state_matches_jax(case, tmp_path):
+    """Resume across the packages: the JAX step's own update (Adam from a
+    fresh state on its gradients), written by the JAX checkpoint code as
+    iter_1 with its optimizer state, loads in the port; then each package
+    takes the next step from there with the same crop and draws.  Its
+    gradients agree at this file's bounds, and the port's Adam update from
+    the loaded state, on the JAX step's gradients, equals optax's within
+    2e-5 * lr (optax takes the bias corrections in float32, where
+    1 - 0.999**2 keeps ~1e-5 relative; torch in float64)."""
+    params, optim = case["params"], jgc.make_adam(BETA1)
+    state1, params1 = {}, {}
+    for key, names, acc in (("G", G_NAMES, case["g_acc"]), ("D", D_NAMES, case["d_acc"])):
+        p = {n: params[n] for n in names}
+        updates, state1[key] = optim.update({n: acc[n] for n in names}, optim.init(p))
+        params1.update(jgc.apply_updates(p, updates, LR))
+    _JaxCheckpoints(tmp_path, params1, state1).save_networks("iter_1")
+
+    model = ApolloModel(_opt(), "cpu")
+    model.save_dir = str(tmp_path)
+    model.load_networks("iter_1")
+    start = _jax_flat(params1, MODEL_NAMES)
+    before = {**_port_flat(model, G_NAMES, list(model.g_params)),
+              **_port_flat(model, D_NAMES, list(model.d_params))}
+    for k, v in start.items():
+        np.testing.assert_array_equal(before[k], v, err_msg=k)
+    _, _, _, gg, dg = model.gradients(torch.from_numpy(case["real"]), case["draws"])
+
+    zeros = lambda t: jax.tree.map(jnp.zeros_like, t)  # noqa: E731
+    gp = {k: params1[k] for k in G_NAMES}
+    dp = {k: params1[k] for k in D_NAMES}
+    g_acc, d_acc, _, _, _ = case["host_step"]._micro(gp, dp, zeros(gp), zeros(dp), case["rng"],
+                                                     jnp.asarray(case["real"]))
+    pg, jg = _port_flat(model, G_NAMES, gg), _jax_flat(g_acc, G_NAMES)
+    _assert_grads(_port_flat(model, D_NAMES, dg), _jax_flat(d_acc, D_NAMES), 1e-3)
+    _assert_grads({k: v for k, v in pg.items() if k.startswith("G_B.")},
+                  {k: v for k, v in jg.items() if k.startswith("G_B.")}, 1e-3)
+    _assert_grads({k: v for k, v in pg.items() if k.startswith("G_A.")},
+                  {k: v for k, v in jg.items() if k.startswith("G_A.")}, G_A_REL_L2)
+
+    # Adam from the loaded state on the JAX step's gradients
+    grads = {}
+    for names, acc in ((G_NAMES, g_acc), (D_NAMES, d_acc)):
+        for n in names:
+            grads[n] = params_from_numpy(flatten_params(acc[n]), model.nets[n])
+    model.apply_gradients(*[[grads[n][pn] for n in names
+                             for pn, _ in model.nets[n].named_parameters()]
+                            for names in (G_NAMES, D_NAMES)])
+    for key, names, acc in (("G", G_NAMES, g_acc), ("D", D_NAMES, d_acc)):
+        p = {n: params1[n] for n in names}
+        updates, _ = optim.update({n: acc[n] for n in names}, state1[key])
+        ref = _jax_flat(jgc.apply_updates(p, updates, LR), names)
+        port = _port_flat(model, names, [q for n in names for q in model.nets[n].parameters()])
+        for k, r in ref.items():
+            np.testing.assert_allclose(port[k], r, rtol=1e-6, atol=2e-5 * LR, err_msg=k)
 
 
 def _nets_rel_l2(a: dict, b: dict, nets) -> float:
