@@ -10,7 +10,8 @@ Phases, each printed with its name, seconds and result:
      count in SASS (``HGMMA``; fails if the two wgmma kernels have none);
   3. kernels: each inference kernel against its plain PyTorch version on the
      card, in bf16 at the shapes one 2 x 140^3 tile batch of the inference
-     path gives it (the dense-K conv at the four half-resolution 128-output
+     path gives it (the norm's also in f32 at one 140^3 cube's of the
+     per-cube loop) (the dense-K conv at the four half-resolution 128-output
      convs, and its autograd Function once at a 54^3 training shape), with
      its time, the plain version's, one PyTorch library call's where there
      is one, and its bound at the H100's published peaks; the norm's
@@ -38,7 +39,18 @@ Phases, each printed with its name, seconds and result:
      held on the slice's bounds against the slice's f32 plain output and
      against the same route on the plain versions in bf16, and the device
      metrics against the host float64 path;
-  7. train: ``neuroclear_tpu_torch.train_onecube.main`` with the production
+  7. legacy: ``test_dice.main --legacy_pipeline`` (the per-cube loop, each
+     cube alone in f32 through the model and back to the host, then
+     ``Assemble_Dice``) on the slice's volume, weights and flags (27 cubes of
+     140^3): its launches exact (the norm's two kernels ten times per cube,
+     no W-pair conv), its wall time and cubes per second, its output held
+     against the same loop on the plain versions and against the fused path
+     in f32, its two galleries (every PNG's signature and IHDR); then
+     ``--repetition --histogram_match`` on a 160^3 volume (8 cubes x 4 flips)
+     against the plain versions; then the non-streaming entry point
+     (``DiceInferencePipeline.run``, bf16) against ``run_streaming``, bit
+     for bit, with its launches;
+  8. train: ``neuroclear_tpu_torch.train_onecube.main`` with the production
      command of ``train_onecube.py`` verbatim (``random3Drotate``, 108^3
      crops, bf16 by default, ``--display_histogram --add_date``) on a
      synthetic 160^3 uint16 TIFF, Kaiming weights from the seed: one warm-up
@@ -55,18 +67,19 @@ Phases, each printed with its name, seconds and result:
      held against f32 no worse than the plain bf16 path's, and each gradient
      tensor against the plain bf16 step's; and the written G_A checkpoint
      run through ``test_dice.main``;
-  8. resume: the production command with ``--lr_policy linear`` for three
+  9. resume: the production command with ``--lr_policy linear`` for three
      steps, then ``--continue_train --load_iter 3``: the reloaded
      parameters, Adam state and schedule position equal to the first run's
      at its save, the next step from both (same crop and draws) as close as
      two runs of that step from one state, and the resumed trainer's two
      steps through its entry point with their launches and checkpoint names;
-  9. profile (only with --profile): a warm run of the slice's tile pipeline
-     (without and with the dense-K conv) and a warm training step under
-     torch.profiler, device time by kernel and the device's idle share, and
-     warm steps with and without a sync after each.
+  10. profile (only with --profile): a warm run of the slice's tile pipeline
+     (without and with the dense-K conv), three warm cubes of the per-cube
+     loop (with its copies) and a warm training step under torch.profiler,
+     device time by kernel and the device's idle share, and warm steps with
+     and without a sync after each.
 Then a ``{"kernels": [...]}`` line (the forward norm's two rows also carry
-the 108^3 step's sums as ``step_*``), the nvidia-smi name and power limit,
+the 108^3 step's sums as ``step_*`` and one f32 cube's as ``legacy_*``), the nvidia-smi name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero before that line.  The whole run has a 600 s budget.
 """
@@ -102,7 +115,7 @@ from neuroclear_tpu_torch.ops.augment import crop_draws
 from neuroclear_tpu_torch.options import train_options
 from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
-from neuroclear_tpu_torch.utils import tiffio
+from neuroclear_tpu_torch.utils import png, tiffio
 from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import kaiming_flat, params_from_numpy
 
@@ -129,6 +142,10 @@ CONV3X3_SHAPES = [((2, TILE // 2, TILE // 2, TILE // 2, 64), 128),    # double_c
 NORM_SHAPES = [((2, TILE ** 3, 64), 3),           # double_conv1 x2, ex_conv1_1
                ((2, (TILE // 2) ** 3, 128), 4),   # double_conv2 x2, ex_double_conv2 x2
                ((2, (TILE // 4) ** 3, 256), 3)]   # bottom_layer x3
+# The per-cube loop (--legacy_pipeline) runs each cube alone and in f32
+# whatever --precision says, as the JAX package does: its norms per cube
+LEGACY_NORM_SHAPES = [((1, TILE ** 3, 64), 3), ((1, (TILE // 2) ** 3, 128), 4),
+                      ((1, (TILE // 4) ** 3, 256), 3)]
 
 # Slice: the shipped inference configuration (README.md, test_dice.py example)
 SLICE_ARGS = ["--dice_size", "120", "120", "120", "--overlap", "15", "--border_cut", "10",
@@ -147,6 +164,31 @@ SLICE_MAX_EXTRA_LSB = 2 * 256
 # the mean.
 SLICE_KP_MAX_LSB = 8 * 256
 SLICE_KP_MEAN_LSB = 128
+
+# Legacy: the per-cube loop with the slice's flags (27 cubes of 140^3, batch
+# 1, f32; the W-pair conv's gate is bf16-only, so cuDNN runs every conv) on
+# the slice's volume and weights.  Two f32 runs of the generator that differ
+# only in sum order (the norm's statistics: kernel against plain; or the
+# batch a cube runs in and the input's rounding, f32(x / 65535) against
+# f32(x) * f32(1 / 65535): the loop against the fused path in f32) move an
+# output by ~1e-6 relative, a few hundredths of a uint16 LSB, which the
+# truncating cast turns into 1-LSB flips.  Bound: the generator's own f32
+# bound on the CPU (tests/test_torch_dice.py, E2E_LSB) for the worst voxel,
+# half an LSB for the mean.
+LEGACY_ARGS = [*SLICE_ARGS, "--legacy_pipeline", "--serial_batches", "--preprocess",
+               "addColorChannel", "--dataset_mode", "diceImage", "--netG", "unet_deconv",
+               "--image_dimension", "3", "--save_volume"]
+LEGACY_MAX_LSB, LEGACY_MEAN_LSB = 8, 0.5
+# Flip-TTA with histogram matching on a smaller volume (8 cubes, 4 flips
+# each), kernel against plain: a voxel whose f32 output lies within the two
+# runs' difference of another's may swap ranks with it and take the input
+# cube's value at the other rank, so the worst voxel is not bounded.
+# Bounds on the mean and on the share of voxels off by more than
+# LEGACY_MAX_LSB; measured on an H100 at seed 0: mean 0.035 LSB, 0.024% of
+# voxels over 8 LSB (2.4% differ at all, the worst by 2744).
+TTA_VOLUME = 160
+TTA_ARGS = ["--repetition", "--histogram_match"]
+TTA_MEAN_LSB, TTA_FRAC_OVER = 1.0, 0.01
 
 # Train: the production command of train_onecube.py:11-17, verbatim (bf16
 # compute with f32 master weights is the port's default precision)
@@ -416,29 +458,32 @@ def one_device_operation(fn, label: str) -> None:
         raise AssertionError(f"{label}: {ops} device operations per call, expected 1")
 
 
-def check_norm(gen, dev, timed=True) -> tuple[dict, dict]:
+def check_norm(gen, dev, timed=True, shapes=NORM_SHAPES, dtype=torch.bfloat16,
+               label="tile batch") -> tuple[dict, dict]:
     """pair_sums and affine_map_act kernels vs their plain versions at the
-    path's three norm shapes (``timed=False``: the checks alone)."""
+    path's three norm shapes (``timed=False``: the checks alone): bf16 at
+    the fused path's, f32 at the per-cube loop's (LEGACY_NORM_SHAPES)."""
     sums, amap = _tot(), _tot(library=False)
     glue = 0.0
-    for shape, mult in NORM_SHAPES:
+    for shape, mult in shapes:
         n, r, c = shape
-        x3 = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(torch.bfloat16)
+        x3 = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
         xd = x3.double()
         ref = torch.stack([xd.sum(1), (xd * xd).sum(1)], 1)
         mag = torch.stack([xd.abs().sum(1), (xd * xd).sum(1)], 1)
         del xd
         s, sc, sh = check_stats(inorm.pair_sums, (x3,), ref, mag,
                                 lambda t: inorm.norm_coefficients(t, r), f"pair_sums {shape}")
-        # f32 sums of bf16 values against f64: 1e-5 of the sum of magnitudes
+        # f32 sums against f64: 1e-5 of the sum of magnitudes
         sp = inorm.pair_sums_plain(x3)[0]
         if not bool(((sp.double() - ref).abs() <= 1e-5 * mag).all()):
             raise AssertionError(f"pair_sums plain {shape} off the f64 sums")
         err_s = (s - sp).abs().max().item()
         y = inorm.affine_map_act(x3, sc, sh, "relu")
         yp = inorm.affine_map_act_plain(x3, sc, sh, "relu")
-        if not within_bf16_ulp(y, yp):
-            raise AssertionError(f"affine_map_act {shape}: more than one bf16 step off")
+        # one rounding of the same f32 product and sum: one step of the dtype
+        if not (within_bf16_ulp(y, yp) if dtype == torch.bfloat16 else within_f32_ulp(y, yp, 1)):
+            raise AssertionError(f"affine_map_act {shape} {dtype}: more than one step off")
         err_m = (y.float() - yp.float()).abs().max().item()
         del ref, mag, sp, y, yp
         if timed:
@@ -448,23 +493,23 @@ def check_norm(gen, dev, timed=True) -> tuple[dict, dict]:
             gl = cuda_ms(lambda: inorm.norm_coefficients(s, r), 10)
             ms_m = cuda_ms(lambda: inorm.affine_map_act(x3, sc, sh, "relu"), 10)
             pl_m = cuda_ms(lambda: inorm.affine_map_act_plain(x3, sc, sh, "relu"), 3)
-            elems = n * r * c
-            tb_s, to_s = bound_ms(elems * 2 + 4 * n * c * 4, 3.0 * elems, PEAK_F32_FLOPS)
-            tb_m, to_m = bound_ms(2 * elems * 2 + 2 * n * c * 4, 3.0 * elems, PEAK_F32_FLOPS)
-            log(f"  pair_sums {shape}: max_abs_err {err_s:.4g} (kernel vs plain f32 sums)  "
-                f"kernel {ms_s:.4f} ms (with the coefficients)  plain {pl_s:.4f} ms  var_mean "
-                f"{lib_s:.4f} ms  glue it replaces (norm_coefficients) {gl:.4f} ms  bound "
-                f"{max(tb_s, to_s):.4f} ms  plan {inorm.stats_plan(n, r, c, 2)}")
-            log(f"  affine_map_act {shape}: max_abs_err {err_m:.4g}  kernel {ms_m:.4f} ms  plain "
-                f"{pl_m:.4f} ms  bound {max(tb_m, to_m):.4f} ms")
+            elems, size = n * r * c, x3.element_size()
+            tb_s, to_s = bound_ms(elems * size + 4 * n * c * 4, 3.0 * elems, PEAK_F32_FLOPS)
+            tb_m, to_m = bound_ms(2 * elems * size + 2 * n * c * 4, 3.0 * elems, PEAK_F32_FLOPS)
+            log(f"  pair_sums {shape} {dtype}: max_abs_err {err_s:.4g} (kernel vs plain f32 "
+                f"sums)  kernel {ms_s:.4f} ms (with the coefficients)  plain {pl_s:.4f} ms  "
+                f"var_mean {lib_s:.4f} ms  glue it replaces (norm_coefficients) {gl:.4f} ms  "
+                f"bound {max(tb_s, to_s):.4f} ms  plan {inorm.stats_plan(n, r, c, size)}")
+            log(f"  affine_map_act {shape} {dtype}: max_abs_err {err_m:.4g}  kernel {ms_m:.4f} "
+                f"ms  plain {pl_m:.4f} ms  bound {max(tb_m, to_m):.4f} ms")
             _add(sums, mult, err_s, ms=ms_s, plain_ms=pl_s, library_ms=lib_s, tb=tb_s, to=to_s)
             _add(amap, mult, err_m, ms=ms_m, plain_ms=pl_m, tb=tb_m, to=to_m)
             glue += mult * gl
         del x3, s, sc, sh
         torch.cuda.empty_cache()
     if timed:
-        log(f"  pair_sums per tile batch: kernel {sums['ms']:.4f} ms, the glue it replaces "
-            f"{glue:.4f} ms")
+        log(f"  pair_sums per {label}: kernel {sums['ms']:.4f} ms, the glue it replaces "
+            f"{glue:.4f} ms; affine_map_act {amap['ms']:.4f} ms")
     return sums, amap
 
 
@@ -835,6 +880,191 @@ def run_dice_cli(seed: int, dev, tmp: str, sl: dict) -> dict:
     return {"launches": launches, "k_err": k_err, "seconds": res["seconds"], "metrics": dev_m}
 
 
+def legacy_inputs(seed: int, tmp: str, size: int) -> tuple:
+    """The synthetic volume of ``size`` as .npy and the slice's Kaiming
+    checkpoint under ``tmp``: (the per-cube CLI's argv without
+    --results_dir, the weights, the volume, the folder)."""
+    vol = synthetic_volume(seed, size)
+    root = os.path.join(tmp, f"legacy{size}")
+    os.makedirs(os.path.join(root, "data"))
+    np.save(os.path.join(root, "data", "volume.npy"), vol)
+    flat = kaiming_flat(UNetDeconv(1, 1), seed)
+    os.makedirs(os.path.join(root, "ckpt", "smoke"))
+    np.savez(os.path.join(root, "ckpt", "smoke", "iter_1_net_G_A.npz"), **flat)
+    argv = ["--dataroot", os.path.join(root, "data"), "--name", "smoke", "--checkpoints_dir",
+            os.path.join(root, "ckpt"), "--load_iter", "1", "--model_suffix", "_A",
+            *LEGACY_ARGS]
+    return argv, flat, vol, root
+
+
+def legacy_grid(vol: np.ndarray) -> DiceGrid:
+    return DiceGrid(pad_for_dicing(vol, 120, 15).shape, 120, 15, 10)
+
+
+def pipeline_launches(batches: int) -> dict:
+    """The kernels of the fused tile pipeline in bf16: two W-pair convs and
+    ten norms per generator application."""
+    expected = {name: 0 for name in kernel_ops.KERNELS}
+    expected.update({"wconv3x3x3": 2 * batches, "pair_sums": 10 * batches,
+                     "affine_map_act": 10 * batches})
+    return expected
+
+
+def per_cube_launches(n_applications: int) -> dict:
+    """The kernels of the per-cube loop: one statistics and one map launch
+    per norm, ten norms per generator application; no W-pair conv (f32)."""
+    expected = {name: 0 for name in kernel_ops.KERNELS}
+    expected.update({"pair_sums": 10 * n_applications, "affine_map_act": 10 * n_applications})
+    return expected
+
+
+def run_per_cube(argv: list, results: str, expected: dict) -> tuple[dict, dict]:
+    """test_dice.main with the per-cube loop, its launches counted from 0
+    and required equal to ``expected``: (its result, the launches)."""
+    kernel_ops.reset_launches()
+    res = test_dice.main([*argv, "--results_dir", results])
+    launches = kernel_ops.launches()
+    log(f"  launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    out = res["fake"]
+    if out.dtype != np.uint16 or out.std() == 0 or not np.isfinite(out).all():
+        raise AssertionError(f"output {out.shape} {out.dtype} std {out.std()}")
+    return res, launches
+
+
+def per_cube_plain(argv: list, flat: dict, dev) -> np.ndarray:
+    """The same per-cube loop (``test_dice.run_legacy``) with the model's
+    generator on the plain versions, the same weights; no kernel may
+    launch."""
+    opt = test_dice.parse_options(argv)
+    dataset = test_dice.DiceImageDataSet(opt)
+    model = test_dice.TestModel(opt, dev)
+    model.netG = define_G(1, 1, 64, "unet_deconv", plain=True)
+    model.netG.load_state_dict(params_from_numpy(flat, model.netG))
+    model.netG.to(dev).eval()
+    before = kernel_ops.launches()
+    out = test_dice.run_legacy(opt, model, dataset)["fake"]
+    if kernel_ops.launches() != before:
+        raise AssertionError("the plain per-cube loop launched a kernel")
+    return out
+
+
+def check_lsb(label: str, out: np.ndarray, ref: np.ndarray, max_lsb: float,
+              mean_lsb: float) -> dict:
+    if out.shape != ref.shape:
+        raise AssertionError(f"{label}: shape {out.shape} against {ref.shape}")
+    err = lsb_stats(out, ref)
+    err["equal"] = bool(np.array_equal(out, ref))
+    log(f"  {label}: {err} (bounds: max {max_lsb}, mean {mean_lsb})")
+    if err["max_lsb"] > max_lsb or err["mean_lsb"] > mean_lsb:
+        raise AssertionError(f"{label}: {err} over max {max_lsb} / mean {mean_lsb} LSB")
+    return err
+
+
+def check_galleries(web_dir: str, shape: tuple, with_input: bool) -> int:
+    """Both pages written; every thumbnail a PNG whose IHDR is 8-bit
+    grayscale of its source's size: an xy slice or MIP (X wide, Y high), an
+    xz MIP (X, Z), a yz MIP (Y, Z).  Returns the number of thumbnails."""
+    z, y, x = shape
+    for page in ("index.html", "index_wholeimg.html"):
+        if not os.path.isfile(os.path.join(web_dir, page)):
+            raise AssertionError(f"gallery {page} not written")
+    sizes = {"xy": (x, y), "xz": (x, z), "yz": (y, z)}
+    found = 0
+    for root, _, files in os.walk(os.path.join(web_dir, "images")):
+        for f in files:
+            if not f.endswith(".png"):
+                continue
+            plane = os.path.basename(root).split("_")[1]
+            header = png.read_header(os.path.join(root, f))
+            if header != (*sizes[plane], 8, 0):
+                raise AssertionError(f"{f}: IHDR {header}, expected {(*sizes[plane], 8, 0)}")
+            found += 1
+    expected = len(range(0, z, max(1, z // 16))) * (1 + with_input) + 3 * (1 + with_input)
+    if found != expected:
+        raise AssertionError(f"{found} thumbnails, expected {expected}")
+    return found
+
+
+def run_legacy(seed: int, dev, tmp: str) -> dict:
+    """The per-cube loop (--legacy_pipeline) on the slice's volume, weights
+    and flags: its launches, its output against the same loop on the plain
+    versions and against the fused path in f32, its galleries; then flip-TTA
+    with histogram matching on a smaller volume against the plain versions;
+    then the non-streaming entry point (``run``) against ``run_streaming``."""
+    argv, flat, vol, root = legacy_inputs(seed, tmp, VOLUME)
+    grid = legacy_grid(vol)
+    t0 = time.perf_counter()
+    res, launches = run_per_cube(argv, os.path.join(root, "results"),
+                                 per_cube_launches(len(grid)))
+    wall = time.perf_counter() - t0
+    log(f"  per-cube loop: {len(grid)} cubes of {grid.roi_size + 20}^3 (f32, batch 1): "
+        f"inference and assembly {res['seconds']:.3f} s = {len(grid) / res['seconds']:.3f} "
+        f"cubes/s = {res['voxels'] / res['seconds']:.4g} voxel/s; the CLI {wall:.3f} s with "
+        f"its galleries and volumes; {nvidia_smi()}")
+    n_png = check_galleries(res["web_dir"], vol.shape, with_input=True)
+    t0 = time.perf_counter()
+    plain = per_cube_plain(argv, flat, dev)
+    plain_s = time.perf_counter() - t0
+    kp = check_lsb("per-cube loop, kernels against the plain versions (f32)", res["fake"],
+                   plain, LEGACY_MAX_LSB, LEGACY_MEAN_LSB)
+    fused_argv = [a for a in argv if a != "--legacy_pipeline"] + ["--precision", "float32"]
+    fused = test_dice.main([*fused_argv, "--results_dir", os.path.join(root, "fused")])
+    fu = check_lsb("per-cube loop against the fused path in f32 (kernels)", res["fake"],
+                   fused["fake"], LEGACY_MAX_LSB, LEGACY_MEAN_LSB)
+    log(f"  the plain per-cube loop {plain_s:.3f} s (with assembly); the fused path in f32 "
+        f"{fused['seconds']:.3f} s; {n_png} thumbnails checked")
+
+    # flip-TTA with histogram matching
+    t_argv, t_flat, t_vol, t_root = legacy_inputs(seed + 6, tmp, TTA_VOLUME)
+    t_argv += TTA_ARGS
+    t_grid = legacy_grid(t_vol)
+    t_res, t_launches = run_per_cube(t_argv, os.path.join(t_root, "results"),
+                                     per_cube_launches(4 * len(t_grid)))
+    t_plain = per_cube_plain(t_argv, t_flat, dev)
+    d = np.abs(t_res["fake"].astype(np.int64) - t_plain)
+    tta = {**lsb_stats(t_res["fake"], t_plain), "frac_over": float((d > LEGACY_MAX_LSB).mean()),
+           "frac_differ": float((d > 0).mean())}
+    log(f"  flip-TTA + histogram match, {len(t_grid)} cubes x 4 on {TTA_VOLUME}^3 in "
+        f"{t_res['seconds']:.3f} s: kernels against the plain versions {tta} (bounds: mean "
+        f"{TTA_MEAN_LSB}, share over {LEGACY_MAX_LSB} LSB {TTA_FRAC_OVER})")
+    if tta["mean_lsb"] > TTA_MEAN_LSB or tta["frac_over"] > TTA_FRAC_OVER:
+        raise AssertionError(f"flip-TTA + histogram match off the plain versions: {tta}")
+    check_galleries(t_res["web_dir"], t_vol.shape, with_input=True)
+
+    # the non-streaming entry point, bf16, against run_streaming
+    net = UNetDeconv(1, 1)
+    net.load_state_dict(params_from_numpy(flat, net))
+    net.to(dev).eval()
+    vp = pad_for_dicing(vol, grid.roi_size, grid.overlap)
+    pipe = DiceInferencePipeline(net, grid, dtype_inv_scale(vp.dtype), tile_batch=2,
+                                 precision="bfloat16", out_dtype=np.uint16,
+                                 orig_shape=vol.shape, device=dev)
+    # run is run_streaming: tile batches of 2 within each z-slab
+    batches = grid.z_steps * -(-(grid.y_steps * grid.x_steps) // 2)
+    expected = pipeline_launches(batches)
+    kernel_ops.reset_launches()
+    t0 = time.perf_counter()
+    out = pipe.run(vp)
+    run_s = time.perf_counter() - t0
+    r_launches = kernel_ops.launches()
+    log(f"  run: {len(grid)} tiles in {batches} batches, {run_s:.3f} s; launches "
+        f"{r_launches}, expected {expected}")
+    if r_launches != expected:
+        raise AssertionError(f"launch counts {r_launches} != {expected}")
+    t0 = time.perf_counter()
+    stream = pipe.run_streaming(vp)
+    stream_s = time.perf_counter() - t0
+    rs = {**lsb_stats(out, stream), "run_s": run_s, "stream_s": stream_s}
+    log(f"  run against run_streaming (bf16; run_streaming {stream_s:.3f} s): {rs}")
+    if out.shape != vol.shape or not np.array_equal(out, stream):
+        raise AssertionError(f"run differs from run_streaming: {rs}")
+    return {"launches": launches, "tta_launches": t_launches, "run_launches": r_launches,
+            "seconds": res["seconds"], "cubes": len(grid), "kp": kp, "fused": fu, "tta": tta,
+            "run": rs}
+
+
 def _grads_by_name(model, g_grads, d_grads) -> dict:
     """{NET.param: f32 gradient} in the order of the model's parameters."""
     names = [f"{n}.{pn}" for n in G_NAMES + D_NAMES for pn, _ in model.nets[n].named_parameters()]
@@ -1165,6 +1395,43 @@ def profile_pipeline(dev, seed: int) -> None:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
 
 
+def profile_legacy(dev, seed: int, cubes: int = 3) -> None:
+    """Where the time of the per-cube loop goes: ``cubes`` warm cubes of
+    140^3 through the CLI's model (upload in f32, the generator in f32, both
+    visuals back to the host, a sync per cube, as ``run_legacy`` does) on
+    the host clock, then under torch.profiler: device time by kernel with
+    the copies, and the device's idle share."""
+    model = test_dice.TestModel(argparse.Namespace(checkpoints_dir=".", name="smoke",
+                                                   model_suffix="_A"), dev)
+    model.netG.load_state_dict(params_from_numpy(kaiming_flat(model.netG, seed), model.netG))
+    model.netG.to(dev)
+    rng = np.random.default_rng(seed)
+    cube = {"A": rng.random((1, TILE, TILE, TILE, 1), np.float32), "A_paths": "0"}
+
+    def loop():
+        for _ in range(cubes):
+            model.set_input(cube)
+            model.test()
+            _ = {k: v.cpu().numpy() for k, v in model.get_current_visuals().items()}
+
+    loop()
+    t0 = time.perf_counter()
+    loop()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        loop()
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    copies = sum(r[1] for r in rows if r[0].startswith("Memcpy"))
+    log(f"  per-cube loop, {cubes} warm cubes of {TILE}^3 (f32): wall {wall:.1f} ms "
+        f"({wall / cubes:.1f} ms per cube); device time {busy:.1f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}), of it copies {copies:.1f} ms "
+        f"({TILE ** 3 * 4 / 1e6:.1f} MB up and {2 * TILE ** 3 * 4 / 1e6:.1f} MB back per cube)")
+    for key, ms, count in rows[:12]:
+        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
+
+
 def _device_rows(prof):
     """(name, device ms, count) of each kernel, most time first.  Annotated
     ranges (torch.optim's Optimizer.step#Adam.step) span kernels that have
@@ -1272,6 +1539,9 @@ def main(argv=None) -> int:
         c3 = check_conv(gen, dev, conv3x3, CONV3X3_SHAPES)
         check_conv3x3_fn(gen, dev)
         sums, amap = check_norm(gen, dev)
+        # the per-cube loop's norms: batch 1, f32
+        lsums, lamap = check_norm(gen, dev, shapes=LEGACY_NORM_SHAPES, dtype=torch.float32,
+                                  label="cube of the per-cube loop (f32)")
         ph.result = "all kernels within tolerance of their plain versions"
 
     with Phase("kernels (training)") as ph:
@@ -1290,6 +1560,14 @@ def main(argv=None) -> int:
         ph.result = (f"{VOLUME}^3 uint16 TIFF in {dc['seconds']:.3f} s, error against the f32 "
                      f"plain output {dc['k_err']}, metrics {dc['metrics']}")
 
+    with Phase("legacy") as ph, tempfile.TemporaryDirectory() as tmp:
+        lg = run_legacy(args.seed, dev, tmp)
+        ph.result = (f"{lg['cubes']} cubes of 140^3 in {lg['seconds']:.3f} s "
+                     f"({lg['cubes'] / lg['seconds']:.3f} cubes/s, f32): against the plain "
+                     f"versions {lg['kp']}, against the fused path (f32) {lg['fused']}; "
+                     f"flip-TTA + histogram match {lg['tta']}; run against run_streaming "
+                     f"{lg['run']}")
+
     with Phase("train") as ph, tempfile.TemporaryDirectory() as tmp:
         tr = run_train(args.seed, dev, tmp)
         ph.result = (f"{CROP}^3 Apollo step {tr['step_ms']:.1f} ms with rotation, "
@@ -1307,13 +1585,16 @@ def main(argv=None) -> int:
             profile_pipeline(dev, args.seed)
             with dense_k_route():
                 profile_pipeline(dev, args.seed)
+            profile_legacy(dev, args.seed)
             profile_train_step(dev, args.seed)
 
     # Times: the inference kernels' rows sum one 2 x 140^3 tile batch's
     # launches, the training kernels' rows one 108^3 step's; the forward
     # norm's rows (pair_sums, affine_map_act) carry the step's sums beside
-    # the batch's as step_*; launches are the counts of the slice's run, the
-    # dice CLI's run, the trainer's and the resumed trainer's.
+    # the batch's as step_*, and one f32 cube's of the per-cube loop as
+    # legacy_*; launches are the counts of the slice's run, the dice CLI's,
+    # the per-cube loop's, its flip-TTA run's, the non-streaming run's, the
+    # trainer's and the resumed trainer's.
     rows = []
     csrc = "neuroclear_tpu_torch/ops/csrc/"
     for name, src, replaces, tot in (
@@ -1326,7 +1607,9 @@ def main(argv=None) -> int:
             ("bwd_map", "inorm.cu", "pallas_ops.py:143", bmap),
             ("conv3x3", "conv3x3.cu", "pallas_conv.py:93", c3)):
         by_path = {"slice": sl["launches"][name], "dice": dc["launches"][name],
-                   "train": tr["launches"][name], "resume": rs["launches"][name]}
+                   "legacy": lg["launches"][name], "legacy_tta": lg["tta_launches"][name],
+                   "run": lg["run_launches"][name], "train": tr["launches"][name],
+                   "resume": rs["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1335,11 +1618,14 @@ def main(argv=None) -> int:
                      "bound_ms": max(tot["tb"], tot["to"]),
                      "bound_by": "operations" if tot["to"] > tot["tb"] else "bytes",
                      "library_ms": tot["library_ms"]})
-        step = {"pair_sums": step_norm["sums"], "affine_map_act": step_norm["amap"]}.get(name)
-        if step is not None:
-            rows[-1].update({"step_ms": step["ms"], "step_plain_ms": step["plain_ms"],
-                             "step_bound_ms": max(step["tb"], step["to"]),
-                             "step_library_ms": step["library_ms"]})
+        for prefix, per in (("step", {"pair_sums": step_norm["sums"],
+                                      "affine_map_act": step_norm["amap"]}),
+                            ("legacy", {"pair_sums": lsums, "affine_map_act": lamap})):
+            if name in per:
+                t = per[name]
+                rows[-1].update({f"{prefix}_ms": t["ms"], f"{prefix}_plain_ms": t["plain_ms"],
+                                 f"{prefix}_bound_ms": max(t["tb"], t["to"]),
+                                 f"{prefix}_library_ms": t["library_ms"]})
     faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"kernels": rows}))
     log(smi)

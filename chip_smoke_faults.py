@@ -29,13 +29,18 @@ import argparse
 import contextlib
 import ctypes
 import functools
+import os
 import subprocess
 import sys
+import tempfile
 
 import torch
 
 import chip_smoke as cs
+from neuroclear_tpu_torch import test_dice
+from neuroclear_tpu_torch.data.dicing import DiceCube
 from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
+from neuroclear_tpu_torch.utils.assemble import Assemble_Dice
 
 
 def _dx_zero_on_call(n):
@@ -181,6 +186,56 @@ SAMPLER_FAULTS = [("rotation angle's sign flipped", _angle_sign_flipped),
                   ("inverse affine transposed", _inverse_transposed)]
 
 
+def _yx_steps_swapped(f):
+    """A DiceCube that cuts cube (z, x, y) where (z, y, x) is asked for."""
+    def fn(self, index):
+        z, y, x = self.grid.index_to_3d(index)
+        g = self.grid
+        return f(self, (z * g.y_steps + x) * g.x_steps + y)
+    return fn
+
+
+def _last_cube_dropped(f):
+    """An Assemble_Dice that never stacks the last cube."""
+    def fn(self, cube):
+        if len(self.cube_queue["fake"]) < self.len_cube_queue - 1:
+            f(self, cube)
+    return fn
+
+
+HOST_FAULTS = [("DiceCube with the y and x steps swapped", DiceCube, "__getitem__",
+                _yx_steps_swapped),
+               ("Assemble_Dice without the last cube", Assemble_Dice, "addToStack",
+                _last_cube_dropped)]
+
+
+def legacy_failures(seed, dev) -> bool:
+    """The per-cube loop's check as it is (must pass) and with each host
+    fault (each must fail it); returns whether all did as they must."""
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        argv, _, vol, root = cs.legacy_inputs(seed, tmp, cs.VOLUME)
+        expected = cs.per_cube_launches(len(cs.legacy_grid(vol)))
+        fused = test_dice.main([a for a in argv if a != "--legacy_pipeline"]
+                               + ["--precision", "float32", "--results_dir",
+                                  os.path.join(root, "fused")])["fake"]
+        for i, (label, fault) in enumerate([("per-cube loop as it is", contextlib.nullcontext())]
+                                           + [(label, _swapped(cls, name, wrap))
+                                              for label, cls, name, wrap in HOST_FAULTS]):
+            try:
+                with fault:
+                    res, _ = cs.run_per_cube(argv, os.path.join(root, f"r{i}"), expected)
+                    cs.check_lsb(label, res["fake"], fused, cs.LEGACY_MAX_LSB,
+                                 cs.LEGACY_MEAN_LSB)
+            except AssertionError as e:
+                cs.log(f"== {label}: the per-cube check fails: {e}")
+                ok &= i > 0
+            else:
+                cs.log(f"== {label}: the per-cube check passes")
+                ok &= i == 0
+    return ok
+
+
 def rotation_failures(label, vol, dev, seed) -> int:
     """1 if the smoke's rotation check fails, else 0."""
     try:
@@ -249,6 +304,7 @@ def main(argv=None) -> int:
     for label, fault in faults:
         with fault:
             ok &= run(label, args.seed, vol, dev) > 0
+    ok &= legacy_failures(args.seed, dev)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

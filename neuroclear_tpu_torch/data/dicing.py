@@ -1,6 +1,6 @@
 """Overlap-tile ("dice") index math, a copy of ``neuroclear_tpu/data/dicing.py``
-(``DiceGrid``): x -> y -> z linear order, stride (roi - overlap), reflect
-border_cut over-read.
+(``DiceGrid`` and ``DiceCube``): x -> y -> z linear order, stride
+(roi - overlap), reflect border_cut over-read.
 """
 
 from __future__ import annotations
@@ -51,3 +51,30 @@ class DiceGrid:
         for i in range(axis_len_steps):
             cov[i * self.step:i * self.step + self.roi_size] += 1.0
         return cov
+
+
+class DiceCube:
+    """Random-access view over a padded volume yielding
+    (roi + 2*border_cut)^3 cubes in x -> y -> z order; the volume is
+    reflect-padded by border_cut on every side, on the host."""
+
+    def __init__(self, image: np.ndarray, roi_size: int, overlap: int = 0,
+                 border_cut: int = 0):
+        self.grid = DiceGrid(image.shape, roi_size, overlap, border_cut)
+        self.roi_size = roi_size
+        self.overlap = overlap
+        self.border_cut = border_cut
+        self.step = self.grid.step
+        self.z_steps = self.grid.z_steps
+        self.y_steps = self.grid.y_steps
+        self.x_steps = self.grid.x_steps
+        b = border_cut
+        self.image = np.pad(image, ((b, b), (b, b), (b, b)), mode="reflect")
+
+    def __getitem__(self, index: int) -> np.ndarray:
+        z0, y0, x0 = self.grid.index_to_coordinates(index)
+        ext = self.roi_size + 2 * self.border_cut
+        return self.image[z0:z0 + ext, y0:y0 + ext, x0:x0 + ext]
+
+    def __len__(self):
+        return len(self.grid)

@@ -1,10 +1,10 @@
 """Options of the port's ``test_dice`` entry point: the flags of the JAX
 package's ``options/test_options.py`` (and the base options it reads) that
-the tiled inference path uses, under the same names and defaults, plus
-``--device``.  The JAX options module cannot be reused: it imports the JAX
-model and dataset registries.
+tiled inference uses, under the same names and defaults, plus ``--device``.
+The JAX options module cannot be reused: it imports the JAX model and
+dataset registries.
 
-Flags whose paths are not ported are refused by ``check_ported`` with a
+Values whose paths are not ported are refused by ``check_ported`` with a
 pointer to ROADMAP.md; flags the JAX CLI parses only for parity with the
 original repository are accepted and change nothing here either.
 """
@@ -16,8 +16,6 @@ import argparse
 # value flags whose other values select paths the port does not have
 PORTED_VALUES = {"netG": ("unet_deconv",), "dataset_mode": ("diceImage",),
                  "image_dimension": (3,)}
-# switches that select paths the port does not have
-UNPORTED_SWITCHES = ("legacy_pipeline", "histogram_match")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,6 +51,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flip-TTA: infer flipped copies of each tile and average")
     p.add_argument("--eval", action="store_true",
                    help="eval mode (the instance-norm generator has no state it changes)")
+    # the per-cube host loop
+    p.add_argument("--legacy_pipeline", action="store_true",
+                   help="run each cube through the model on its own and assemble them on the "
+                        "host (Assemble_Dice), in float32")
+    p.add_argument("--histogram_match", action="store_true",
+                   help="match each output cube's histogram to its input cube's (runs the "
+                        "per-cube loop)")
+    p.add_argument("--num_threads", type=int, default=8,
+                   help="no effect: the CLI sets 0, as test_dice.py does; taken so that a "
+                        "JAX command line parses")
+    p.add_argument("--max_dataset_size", type=int, default=float("inf"),
+                   help="at most this many cubes are loaded")
     # post-processing and outputs
     p.add_argument("--data_type", default="uint16",
                    help="output dtype: uint16 or uint8 (anything else: float in [0, 1])")
@@ -68,30 +78,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write every 2D slice of the result as TIFF")
     p.add_argument("--skip_real", action="store_true",
                    help="do not save the input volume/slices (metrics still use them)")
+    p.add_argument("--aspect_ratio", type=float, default=1.0,
+                   help="no effect (the JAX package does not apply it either); taken so "
+                        "that a JAX command line parses")
     # one generator and one dataset are ported
     p.add_argument("--netG", default="unet_deconv")
     p.add_argument("--dataset_mode", default="diceImage")
     p.add_argument("--image_dimension", type=int, default=3)
-    # parsed for parity with the JAX CLI; no effect on the fused path
     p.add_argument("--preprocess", default="none",
                    help="transform chain of the per-cube loader (not used by the fused path)")
     p.add_argument("--serial_batches", action="store_true",
-                   help="iterate in file order (the fused path always does)")
-    # unported paths, refused
-    p.add_argument("--legacy_pipeline", action="store_true",
-                   help="the per-cube host loop (not ported)")
-    p.add_argument("--histogram_match", action="store_true",
-                   help="per-tile histogram matching (not ported)")
+                   help="no effect: the loader always iterates in file order (test_dice.py "
+                        "sets it); taken so that a JAX command line parses")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def check_ported(opt) -> None:
     """Raise NotImplementedError for an option whose path is not ported."""
-    for flag in UNPORTED_SWITCHES:
-        if getattr(opt, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md, queue 1 "
-                                      "item 1)")
     for flag, values in PORTED_VALUES.items():
         if getattr(opt, flag) not in values:
             raise NotImplementedError(f"--{flag} {getattr(opt, flag)} is not ported yet "

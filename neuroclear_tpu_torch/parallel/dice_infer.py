@@ -1,5 +1,6 @@
 """Overlap-tile ("dice") inference on the card: the port of
-``neuroclear_tpu/parallel/dice_infer.py::DiceInferencePipeline.run_streaming``.
+``neuroclear_tpu/parallel/dice_infer.py::DiceInferencePipeline`` (``run``
+and ``run_streaming``).
 
 The raw volume goes to the device once, as per-slab z-chunks.  Each z-slab
 is assembled on the device with its reflect border (z edges from flipped
@@ -11,10 +12,14 @@ counts, cropped and cast to the output dtype on the device, and copied into
 pinned host memory on a side stream while the next slab computes (the JAX
 package's ``copy_to_host_async``); the overlap tail rolls into the next slab.
 
-Departures from the JAX package, neither of which changes the result: the
-last tile batch of a slab may be short (eager PyTorch needs no padded
-batches), and the emitted rows keep their (rows, Y, X) shape.  The sharded
-multi-device path waits for the multi-GPU slice (ROADMAP.md).
+``run`` is ``run_streaming``: the JAX package's ``run`` keeps a full-volume
+accumulator and pads the last tile batch with zero-weight tiles, which adds
+the same tiles in the same order, so the port gives both entry points the
+one pipeline and the one answer.  Departures from the JAX package, neither
+of which changes the result: the last tile batch of a slab may be short
+(eager PyTorch needs no padded batches), and the emitted rows keep their
+(rows, Y, X) shape.  The sharded multi-device paths wait for the multi-GPU
+slice (ROADMAP.md, queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -106,8 +111,11 @@ class DiceInferencePipeline:
     the device."""
 
     def __init__(self, net, grid: DiceGrid, inv_scale: float, tile_batch: int = 4,
-                 repetition: bool = False, precision: str = "float32", out_dtype=None,
-                 orig_shape=None, device=None):
+                 repetition: bool = False, n_devices: int = 1, precision: str = "float32",
+                 out_dtype=None, orig_shape=None, device=None):
+        if n_devices != 1:
+            raise NotImplementedError(f"n_devices {n_devices}: the sharded pipeline is not "
+                                      "ported yet (ROADMAP.md, queue 1 item 9)")
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision {precision!r}: float32 or bfloat16")
         out_dtype = np.dtype(out_dtype).name if out_dtype is not None else None
@@ -134,6 +142,11 @@ class DiceInferencePipeline:
         y = y[..., 0].float()
         b = self.grid.border_cut
         return y[:, b:-b, b:-b, b:-b] if b > 0 else y
+
+    def run(self, vol_padded: np.ndarray) -> np.ndarray:
+        """The JAX package's non-streaming entry point: the same volume as
+        ``run_streaming``, which computes it."""
+        return self.run_streaming(vol_padded)
 
     @torch.inference_mode()
     def run_streaming(self, vol_padded: np.ndarray, on_rows=None) -> np.ndarray:

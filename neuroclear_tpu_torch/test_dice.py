@@ -1,22 +1,26 @@
 """Tiled ("dice") inference with a trained generator, TIFF in and out, with
-post-processing and PSNR/SSIM against a ground truth: the port of the JAX
-package's ``test_dice.py`` (its fused path, ``run_fused``).
+post-processing, HTML galleries and PSNR/SSIM against a ground truth: the
+port of the JAX package's ``test_dice.py``.
 
     python -m neuroclear_tpu_torch.test_dice --dataroot <dir> --name <exp> \
         --checkpoints_dir <dir> --results_dir <dir> --model_suffix _A \
         --load_iter <N> --dice_size 120 120 120 --overlap 15 --border_cut 10 \
         --save_volume [--save_projections] [--save_slices] [--skip_real] \
-        [--normalize_intensity] [--dataroot_gt <dir>] [--device cpu]
+        [--normalize_intensity] [--dataroot_gt <dir>] [--device cpu] \
+        [--legacy_pipeline] [--repetition] [--histogram_match]
 
 It reads the first volume under ``--dataroot`` (uncompressed TIFF or
 ``.npy``), loads ``{suffix}_net_G{model_suffix}.npz`` (the JAX checkpoint
-format), runs the tile pipeline on the card unless ``--device cpu`` is
-given, and writes under ``<results_dir>/<name>/<phase>_<epoch>[_iter<N>]/``
-what the JAX CLI writes: ``volumes/``, ``projections/``, ``images/`` and
-``metrics.txt``.  ``NEUROCLEAR_PALLAS_CONV=1`` routes the generator's
-half-resolution convs through the dense-K conv kernel.  The HTML galleries
-(``populate_webpages``), the per-cube loop (``--legacy_pipeline``) and
-``--histogram_match`` are not ported (ROADMAP.md).
+format), runs on the card unless ``--device cpu`` is given, and writes under
+``<results_dir>/<name>/<phase>_<epoch>[_iter<N>]/`` what the JAX CLI writes:
+the galleries ``index.html`` and ``index_wholeimg.html`` with their PNG
+thumbnails under ``images/``, ``volumes/``, ``projections/``, ``images/``
+slices and ``metrics.txt``.  By default the tiles stream through the fused
+pipeline on the device (``run_fused``, ``--precision`` bfloat16);
+``--legacy_pipeline``, or ``--histogram_match``, which needs it, runs each
+cube through the model on its own in float32 and assembles the cubes on the
+host (``run_legacy``).  ``NEUROCLEAR_PALLAS_CONV=1`` routes the generator's
+half-resolution bf16 convs through the dense-K conv kernel.
 """
 
 from __future__ import annotations
@@ -29,13 +33,16 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .data import create_dataset
 from .data.diceImage_dataset import DiceImageDataSet
 from .data.image_folder import make_dataset
 from .models.test_model import TestModel
 from .options import test_options
 from .parallel import metrics as device_metrics
 from .parallel.dice_infer import DiceInferencePipeline
-from .utils import imageops, tiffio
+from .utils import html, imageops, tiffio
+from .utils.assemble import Assemble_Dice
+from .utils.visualizer import save_images
 
 
 def web_dir_of(opt) -> str:
@@ -55,12 +62,22 @@ def _volume_out_path(opt, web_dir: str) -> str:
     return web_dir + "/volumes/output_volume_xy-view_epoch-" + str(opt.epoch) + ".tif"
 
 
+def parse_options(argv=None):
+    """The options, with the test parameters that the JAX CLI hard-codes."""
+    opt = test_options.parse(argv)
+    opt.num_threads = 0
+    opt.batch_size = 1
+    opt.serial_batches = True
+    opt.no_flip = True
+    return opt
+
+
 def main(argv=None) -> dict:
     """Run the CLI.  Returns {"web_dir", "fake", "real" (the post-processed
-    volumes), "fake_streamed" (the path written during the harvest, or None),
-    "seconds" (pipeline and post-processing wall time), "voxels", "metrics"
-    (None without --dataroot_gt)}."""
-    opt = test_options.parse(argv)
+    volumes; "real" is None when the per-cube loop skipped it), "fake_streamed"
+    (the path written during the harvest, or None), "seconds" (inference and
+    assembly wall time), "voxels", "metrics" (None without --dataroot_gt)}."""
+    opt = parse_options(argv)
     device = resolve_device(opt.device)
     # f32 convs in full f32, as the JAX package's HIGHEST precision
     torch.backends.cudnn.allow_tf32 = False
@@ -72,22 +89,57 @@ def main(argv=None) -> dict:
     model.setup(opt)
     web_dir = web_dir_of(opt)
     print("creating web directory", web_dir, flush=True)
-    os.makedirs(web_dir, exist_ok=True)
+    webpage = html.HTML(web_dir, "Experiment = %s, Phase = %s, Epoch = %s"
+                        % (opt.name, opt.phase, opt.epoch))
 
+    use_legacy = opt.legacy_pipeline or opt.histogram_match
     t0 = time.perf_counter()
-    img_whole_dict = run_fused(opt, model, dataset, web_dir, device)
+    if use_legacy:
+        img_whole_dict = run_legacy(opt, model, dataset)
+    else:
+        img_whole_dict = run_fused(opt, model, dataset, web_dir, device)
     dt = time.perf_counter() - t0
     n_vox = int(np.prod(dataset.size_original()))
-    print(f"Inference+assembly: {dt:.3f}s ({n_vox / max(dt, 1e-9):.4g} voxel/s, {device})",
-          flush=True)
+    print(f"Inference+assembly: {dt:.3f}s ({n_vox / max(dt, 1e-9):.4g} voxel/s, {device}, "
+          f"{'per-cube loop' if use_legacy else 'fused pipeline'})", flush=True)
+    print("Image volume re-assembled.")
     print("re-merged image shape: {}".format(img_whole_dict["fake"].shape), flush=True)
 
+    populate_webpages(opt, web_dir, webpage, img_whole_dict)
     save_outputs(opt, web_dir, img_whole_dict)
     res = compute_gt_metrics(opt, web_dir, img_whole_dict, device)
     print("----Test done----", flush=True)
-    return {"web_dir": web_dir, "fake": img_whole_dict["fake"], "real": img_whole_dict["real"],
+    return {"web_dir": web_dir, "fake": img_whole_dict["fake"],
+            "real": img_whole_dict.get("real"),
             "fake_streamed": img_whole_dict.get("fake_streamed"), "seconds": dt,
             "voxels": n_vox, "metrics": res}
+
+
+def populate_webpages(opt, web_dir, webpage, img_whole_dict) -> None:
+    """The two galleries: ``index.html`` with about 16 xy slices of the output
+    (and of the input unless --skip_real), ``index_wholeimg.html`` with the
+    maximum projections along each axis."""
+    fake = img_whole_dict["fake"]
+    real = img_whole_dict.get("real")
+
+    n = fake.shape[0]
+    step = max(1, n // 16)
+    for i in range(0, n, step):
+        visuals = {"output_xy": fake[i]}
+        if real is not None and not opt.skip_real:
+            visuals["input_xy"] = real[i]
+        save_images(webpage, visuals, f"slice_z{i:04d}.tif")
+    webpage.save()
+
+    wholepage = html.HTML(web_dir, "Whole_img: Experiment = %s, Phase = %s, "
+                          "Epoch = %s" % (opt.name, opt.phase, opt.epoch))
+    mips = {}
+    for plane, ax in (("xy", 0), ("xz", 1), ("yz", 2)):
+        mips[f"output_{plane}_mip"] = np.amax(fake, axis=ax)
+        if real is not None and not opt.skip_real:
+            mips[f"input_{plane}_mip"] = np.amax(real, axis=ax)
+    save_images(wholepage, mips, "whole_volume.tif", width=384)
+    wholepage.save("index_wholeimg.html")
 
 
 def run_fused(opt, model, dataset, web_dir, device) -> dict:
@@ -146,10 +198,46 @@ def _postprocess(vol, opt, orig_shape):
     return vol[:oz, :oy, :ox]
 
 
+def run_legacy(opt, model, dataset_probe) -> dict:
+    """The per-cube loop: each cube from the loader through the model on its
+    own (float32), both visuals back to the host, then ``Assemble_Dice``;
+    with --repetition each cube also runs flipped along each axis and the
+    unflipped outputs are averaged."""
+    dataset = create_dataset(opt)
+    dice_assembly = Assemble_Dice(opt, dataset=dataset_probe)
+    print("whole Image size: {}".format(dice_assembly.image_size))
+    print("Whole image step counts y,x,z: {}".format(
+        (dice_assembly.y_steps, dice_assembly.x_steps, dice_assembly.z_steps)))
+
+    def host_visuals():
+        return {k: v.cpu().numpy() for k, v in model.get_current_visuals().items()}
+
+    if opt.eval:
+        model.eval()
+    for data_i in dataset:
+        model.set_input(data_i)
+        if opt.repetition:
+            variants = dice_assembly.varycubeinput(
+                {"A": model.real.cpu().numpy(), "A_paths": data_i["A_paths"]})
+            outs = []
+            for v in variants:
+                model.set_input(v)
+                model.test()
+                outs.append(host_visuals())
+            visuals = dice_assembly.combinecube(outs)
+        else:
+            model.test()
+            visuals = host_visuals()
+        dice_assembly.addToStack(visuals)
+    print("Inference Done. ")
+    dice_assembly.assemble_all()
+    return dice_assembly.getDict()
+
+
 def save_outputs(opt, web_dir, img_whole_dict) -> None:
     fake_volume = img_whole_dict["fake"]
-    real_volume = img_whole_dict["real"]
     if not opt.skip_real:
+        real_volume = img_whole_dict["real"]
         print("Input data type is: " + str(real_volume.dtype))
     print("Output data type is: " + str(fake_volume.dtype))
 
@@ -218,7 +306,7 @@ def compute_gt_metrics(opt, web_dir, img_whole_dict, device):
     gt_volume = tiffio.imread(make_dataset(opt.dataroot_gt, 1)[0])
     print("Calculating PSNR for the whole image volume...")
     fake_volume = img_whole_dict["fake"]
-    real_volume = img_whole_dict["real"]
+    real_volume = img_whole_dict["real"]  # a KeyError when the per-cube loop skipped it, as in JAX
     if device_metrics.enabled() and device_metrics.supported(real_volume, fake_volume, gt_volume):
         print(f"metrics: slab-streamed on {device}")
         res = device_metrics.protocol_metrics(real_volume, fake_volume, gt_volume, device=device)

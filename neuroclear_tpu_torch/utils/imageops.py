@@ -1,6 +1,7 @@
 """Host-side image helpers, copied from ``neuroclear_tpu/utils/imageops.py``
-(``tensor2im``, ``pad_for_dicing``, ``normalize``, ``standardize``,
-``rescale_intensity``, ``get_psnr``, ``get_ssim``) and ``neuroclear_tpu/ops/augment.py``
+(``tensor2im``, ``pad_for_dicing``, ``crop_for_dicing``, ``normalize``,
+``standardize``, ``rescale_intensity``, ``match_histograms``, ``get_psnr``,
+``get_ssim``, ``save_image``) and ``neuroclear_tpu/ops/augment.py``
 (``dtype_inv_scale``), in numpy float64 as there."""
 
 from __future__ import annotations
@@ -8,6 +9,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from . import png
 
 
 def pad_for_dicing(image: np.ndarray, roi_size: int, overlap: int = 0) -> np.ndarray:
@@ -19,6 +22,16 @@ def pad_for_dicing(image: np.ndarray, roi_size: int, overlap: int = 0) -> np.nda
         pads.append(step * counts + roi_size - dim)
     z_pad, y_pad, x_pad = pads[2], pads[1], pads[0]
     return np.pad(image, ((0, z_pad), (0, y_pad), (0, x_pad)))
+
+
+def crop_for_dicing(image: np.ndarray, roi_size: int, overlap: int = 0) -> np.ndarray:
+    """Crop the leading samples so stride (roi-overlap) tiles the volume."""
+    step = roi_size - overlap
+    crops = []
+    for dim in image.shape:
+        counts = (dim - overlap) // step
+        crops.append(dim - step * counts - overlap)
+    return image[crops[0]:, crops[1]:, crops[2]:]
 
 
 def tensor2im(x, imtype=np.uint16) -> np.ndarray:
@@ -65,6 +78,27 @@ def rescale_intensity(img: np.ndarray, in_range: tuple) -> np.ndarray:
     lo, hi = in_range
     img = np.clip(img, lo, hi)
     return (img - lo) / max(hi - lo, np.finfo(np.float32).tiny)
+
+
+def match_histograms(image: np.ndarray, reference: np.ndarray) -> np.ndarray:
+    """skimage.exposure.match_histograms for single-channel arrays: map the
+    image's empirical CDF onto the reference's."""
+    src = image.ravel()
+    ref = reference.ravel()
+    src_vals, src_inv, src_cnt = np.unique(src, return_inverse=True, return_counts=True)
+    ref_vals, ref_cnt = np.unique(ref, return_counts=True)
+    src_q = np.cumsum(src_cnt) / src.size
+    ref_q = np.cumsum(ref_cnt) / ref.size
+    mapped = np.interp(src_q, ref_q, ref_vals)
+    return mapped[src_inv].reshape(image.shape).astype(image.dtype, copy=False)
+
+
+def save_image(image_numpy: np.ndarray, image_path: str) -> None:
+    """A 2D uint8 image as an 8-bit grayscale PNG (``utils/png.py``; the JAX
+    package writes it through PIL, which the port does not use)."""
+    if not image_path.lower().endswith(".png"):
+        raise ValueError(f"{image_path}: the port writes PNG images only")
+    png.write_gray8(image_path, image_numpy)
 
 
 def get_mse(source, target):

@@ -1,12 +1,17 @@
-"""The trainer's reporting, the port of ``neuroclear_tpu/utils/visualizer.py``
-for the single-volume trainer: console loss lines and ``loss_log.txt`` in the
-JAX package's format, TIFF snapshots of the visuals (through the port's own
-codec, ``utils/tiffio.py``), and TensorBoard scalars, slice and MIP figures,
-histograms and the options where ``torch.utils.tensorboard`` (and, for the
-figures, ``matplotlib``) import.  A sink that does not import is reported as
-off once; it is never a stand-in for anything else, and nothing here catches
-an error of the training step.  The visuals are device tensors, read back
-only when a sink takes them.
+"""The port of ``neuroclear_tpu/utils/visualizer.py``.
+
+``Visualizer`` is the single-volume trainer's reporting: console loss lines
+and ``loss_log.txt`` in the JAX package's format, TIFF snapshots of the
+visuals (through the port's own codec, ``utils/tiffio.py``), and TensorBoard
+scalars, slice and MIP figures, histograms and the options where
+``torch.utils.tensorboard`` (and, for the figures, ``matplotlib``) import.
+A sink that does not import is reported as off once; it is never a stand-in
+for anything else, and nothing here catches an error of the training step.
+The visuals are device tensors, read back only when a sink takes them.
+
+``save_images`` fills an HTML gallery of the tiled inference (PNG
+thumbnails through ``utils/png.py``) and ``save_test_metrics`` writes the
+original's per-item ``metrics.txt`` lines.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import time
 import numpy as np
 
 from . import tiffio
-from .imageops import tensor2im
+from .imageops import save_image, tensor2im
 
 
 def _to_zyx(image) -> np.ndarray:
@@ -135,3 +140,55 @@ class Visualizer:
     def close(self):
         if self.tb_writer is not None:
             self.tb_writer.close()
+
+
+def save_images(webpage, visuals, image_path, width=256):
+    """Add one row of thumbnails to ``webpage`` (an ``html.HTML``): each
+    visual as ``images/<label>/<name>_<label>.png``, linked relative to the
+    page.  [0, 1] float visuals are cast to uint8; integer ones (the tiled
+    inference's outputs) are min-max stretched to uint8; a 3D visual shows
+    its middle slice."""
+    import ntpath
+
+    image_dir = webpage.get_image_dir()
+    short_path = ntpath.basename(image_path[0] if isinstance(image_path, list) else image_path)
+    name = os.path.splitext(short_path)[0]
+    webpage.add_header(name)
+    ims, txts, links = [], [], []
+    for label, im_data in visuals.items():
+        arr = np.squeeze(np.asarray(im_data))
+        if np.issubdtype(arr.dtype, np.integer):
+            lo, hi = float(arr.min()), float(arr.max())
+            image_numpy = ((arr.astype(np.float32) - lo)
+                           * (255.0 / max(hi - lo, 1.0))).astype(np.uint8)
+        else:
+            image_numpy = np.squeeze(tensor2im(arr, imtype=np.uint8))
+        label_dir = os.path.join(image_dir, label)
+        os.makedirs(label_dir, exist_ok=True)
+        save_path = os.path.join(label_dir, f"{name}_{label}.png")
+        save_image(image_numpy if image_numpy.ndim == 2
+                   else image_numpy[image_numpy.shape[0] // 2], save_path)
+        rel = os.path.relpath(save_path, webpage.web_dir)
+        ims.append(rel)
+        txts.append(label)
+        links.append(rel)
+    webpage.add_images(ims, txts, links, width=width)
+
+
+def save_test_metrics(save_dir, opt, ssims, psnrs):
+    """Append the original's per-item metrics lines to ``metrics.txt``:
+    ``ssims`` and ``psnrs`` are (input avg, output avg, input whole, output
+    whole)."""
+    message = "Experiment Name: " + opt.name + "\n"
+    message += "-------------------------------------------------\n"
+    message += "Network Input vs. Groundtruth\n"
+    message += ("(ssim_avg: %.4f, psnr_avg: %.4f, ssim_whole: %.4f, psnr_whole: %.4f)\n"
+                % (ssims[0], psnrs[0], ssims[2], psnrs[2]))
+    message += "-------------------------------------------------\n"
+    message += "Network Output vs. Groundtruth\n"
+    message += ("(ssim_avg: %.4f, psnr_avg: %.4f, ssim_whole: %.4f, psnr_whole: %.4f)\n"
+                % (ssims[1], psnrs[1], ssims[3], psnrs[3]))
+    message += "-------------------------------------------------"
+    print(message)
+    with open(os.path.join(save_dir, "metrics.txt"), "a") as f:
+        f.write(f"{message}\n")

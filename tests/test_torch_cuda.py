@@ -407,3 +407,52 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         conv3x3.conv3d(x.to(torch.bfloat16), torch.zeros((27, 160, 64), dtype=torch.bfloat16,
                                                          device=dev))
     assert conv3x3.conv3d.launches == before
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_f32_norm_kernels_at_the_per_cube_shape(dev, c):
+    """The per-cube loop's norms: batch 1, one 140^3 cube, f32.  The sums
+    within 1e-5 of the f64 sums of magnitudes (one launch, the coefficients
+    within 2 f32 ulp of the glue, a second call bit-equal), the map equal to
+    its plain version."""
+    x, _ = _stats_inputs((1, 140 ** 3, c), torch.float32, c, dev)
+    xd = x.double()
+    ref = torch.stack([xd.sum(1), (xd * xd).sum(1)], 1)
+    mag = torch.stack([xd.abs().sum(1), (xd * xd).sum(1)], 1)
+    del xd
+    _, scale, shift = _check_stats(inorm.pair_sums, (x,), ref, mag,
+                                   lambda s: inorm.norm_coefficients(s, 140 ** 3))
+    before = inorm.affine_map_act.launches
+    y = inorm.affine_map_act(x, scale, shift, "relu")
+    assert inorm.affine_map_act.launches == before + 1
+    assert torch.equal(y, inorm.affine_map_act_plain(x, scale, shift, "relu"))
+
+
+def test_run_matches_run_streaming_on_the_card(dev):
+    """The non-streaming entry point against the streaming one on the
+    kernels (bf16, real UNetDeconv weights): one pipeline, so the launches
+    are run_streaming's (ten norms per tile batch, batches within a z-slab)
+    and the volumes are equal, bit for bit."""
+    import numpy as np
+
+    from neuroclear_tpu_torch.data.dicing import DiceGrid
+    from neuroclear_tpu_torch.nn.generators import UNetDeconv
+    from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
+    from neuroclear_tpu_torch.utils.imageops import pad_for_dicing
+    from neuroclear_tpu_torch.utils.weights import kaiming_flat, params_from_numpy
+
+    vol = np.random.default_rng(2).integers(0, 65535, (70, 60, 50)).astype(np.uint16)
+    vp = pad_for_dicing(vol, 32, 8)
+    net = UNetDeconv(1, 1)
+    net.load_state_dict(params_from_numpy(kaiming_flat(net, 3), net))
+    net.to(dev).eval()
+    pipe = DiceInferencePipeline(net, DiceGrid(vp.shape, 32, 8, 4), 1 / 65535.0, tile_batch=2,
+                                 precision="bfloat16", out_dtype=np.uint16, orig_shape=vol.shape,
+                                 device=dev)
+    before = inorm.pair_sums.launches
+    out = pipe.run(vp)
+    g = pipe.grid
+    batches = g.z_steps * -(-(g.y_steps * g.x_steps) // 2)
+    assert inorm.pair_sums.launches == before + 10 * batches
+    assert out.shape == vol.shape and out.std() > 0
+    assert np.array_equal(out, pipe.run_streaming(vp))

@@ -104,6 +104,40 @@ def _read_outputs(web_dir):
             if f.endswith(".tif")}
 
 
+def _check_galleries(jax_web, res, skip_real):
+    """The fused path writes the galleries too: both pages as the JAX CLI's
+    text, the same thumbnails, each pixel-equal to what the JAX package's
+    ``populate_webpages`` writes from the port's volumes."""
+    import tempfile
+
+    import test_dice as jax_cli
+    from PIL import Image
+
+    from neuroclear_tpu.utils import html as jax_html
+
+    def pngs(root):
+        return sorted(os.path.relpath(os.path.join(r, f), root)
+                      for r, _, fs in os.walk(root) for f in fs if f.endswith(".png"))
+
+    def pixels(path):
+        with Image.open(path) as im:
+            return np.asarray(im)
+
+    for page in ("index.html", "index_wholeimg.html"):
+        with open(os.path.join(jax_web, page)) as a, open(os.path.join(res["web_dir"], page)) as b:
+            assert a.read() == b.read(), page
+    assert pngs(res["web_dir"]) == pngs(str(jax_web))
+    with tempfile.TemporaryDirectory() as ref_dir:
+        opt = SimpleNamespace(skip_real=skip_real, aspect_ratio=1.0, name="exp", phase="test",
+                              epoch="latest")
+        jax_cli.populate_webpages(opt, ref_dir, jax_html.HTML(ref_dir, "t"),
+                                  {"fake": res["fake"], "real": res["real"]})
+        assert pngs(ref_dir) == pngs(res["web_dir"])
+        for f in pngs(ref_dir):
+            assert np.array_equal(pixels(os.path.join(res["web_dir"], f)),
+                                  pixels(os.path.join(ref_dir, f))), f
+
+
 SLICES = ["--skip_real", "--save_slices", "--data_name", "vol"]
 
 
@@ -146,6 +180,7 @@ def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, checkpoint, in_dtype, d
         assert g.dtype == r.dtype and g.shape == r.shape, (path, g.dtype, r.dtype)
         err = np.abs(g.astype(np.float64) - r.astype(np.float64)).max()
         assert err <= tol, (path, err, tol)
+    _check_galleries(tmp_path / "jax" / web, res, "--skip_real" in extra)
     written = got[os.path.join("volumes", "output_volume_xy-view_iter-5.tif")]
     assert np.array_equal(res["fake"].astype(written.dtype), written)
     assert res["fake"].shape == SHAPE and res["fake"].std() > 0
@@ -173,9 +208,33 @@ def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, checkpoint, in_dtype, d
         assert abs(res["metrics"][key] - r) <= tol, (key, res["metrics"][key], r)
 
 
+@pytest.mark.parametrize("switch", ["--legacy_pipeline", "--histogram_match"])
+def test_port_cli_runs_the_per_cube_switches(tmp_path, checkpoint, switch):
+    """Both switches run the per-cube loop (no longer refused): the output
+    volume within GEN_LSB of the fused path's in f32 (the loop's generator
+    sees the cubes in f32 too; normalize_dtype's float64 division and the
+    per-cube assembly order move no voxel by a whole LSB on their own), and
+    the galleries and volumes written.  tests/test_torch_legacy.py holds the
+    loop against the JAX CLI."""
+    _volumes("uint16", tmp_path)
+    fused = port_cli.main(_args(tmp_path, checkpoint, tmp_path / "fused", "uint16", False)
+                          + ["--device", "cpu"])
+    res = port_cli.main(_args(tmp_path, checkpoint, tmp_path / "loop", "uint16", False,
+                              [switch]) + ["--device", "cpu"])
+    assert res["fake_streamed"] is None and fused["fake_streamed"] is not None
+    assert res["fake"].shape == SHAPE and res["fake"].dtype == np.uint16
+    for page in ("index.html", "index_wholeimg.html"):
+        assert os.path.isfile(os.path.join(res["web_dir"], page))
+    d = np.abs(res["fake"].astype(np.int64) - fused["fake"].astype(np.int64))
+    if switch == "--legacy_pipeline":
+        assert d.max() <= GEN_LSB, d.max()
+    else:  # matched onto each input cube's histogram: the input's values
+        assert np.isin(res["fake"], np.unique(res["real"])).mean() > 0.5
+    assert np.array_equal(_read_outputs(res["web_dir"])[
+        os.path.join("volumes", "output_volume_xy-view_iter-5.tif")], res["fake"])
+
+
 @pytest.mark.parametrize("flags, error", [
-    (["--legacy_pipeline"], NotImplementedError),
-    (["--histogram_match"], NotImplementedError),
     (["--netG", "resnet_9blocks"], NotImplementedError),
     (["--dataset_mode", "cube"], NotImplementedError),
     (["--image_dimension", "2"], NotImplementedError),
