@@ -51,12 +51,15 @@ Phases, each printed with its name, seconds and result:
      (``DiceInferencePipeline.run``, bf16) against ``run_streaming``, bit
      for bit, with its launches;
   8. train: ``neuroclear_tpu_torch.train_onecube.main`` with the production
-     command of ``train_onecube.py`` verbatim (``random3Drotate``, 108^3
-     crops, bf16 by default, ``--display_histogram --add_date``) on a
-     synthetic 160^3 uint16 TIFF, Kaiming weights from the seed: one warm-up
-     step and five timed ones on the card's clock (the trainer syncs only at
-     the end), the launches of every kernel per step checked exactly, the
-     step median printed beside the same run without rotation; rotated
+     command of ``train_onecube.py`` (``random3Drotate``, 108^3 crops,
+     ``--display_histogram --add_date``) plus ``--precision bfloat16``, as
+     the JAX study passes it, on a synthetic 160^3 uint16 TIFF, Kaiming
+     weights from the seed: one warm-up step and five timed ones on the
+     card's clock (the trainer syncs only at the end), the launches of every
+     kernel per step checked exactly, the step median printed beside the
+     same run without rotation; the command verbatim (f32, the default)
+     for two steps, its launches exact (no W-pair conv, the norm's kernels
+     in f32); rotated
      crops of the sampler on the card held against an independent float64
      reference (``scipy.ndimage.map_coordinates``, order 1, over the slab at
      the port's host geometry), the sampler run with
@@ -73,11 +76,22 @@ Phases, each printed with its name, seconds and result:
      at its save, the next step from both (same crop and draws) as close as
      two runs of that step from one state, and the resumed trainer's two
      steps through its entry point with their launches and checkpoint names;
-  10. profile (only with --profile): a warm run of the slice's tile pipeline
+  10. study: the JAX study's ga8 training command
+     (``scripts/run_quality_study.sh``: 148^3 crops, ``--grad_accum 8
+     --remat --precision bfloat16 --seed 0``) through ``train_onecube.main``
+     on a synthetic 320^3 uint16 TIFF, resumed from the six nets the study
+     trained (``study_state/apollo148s4``, iteration 11000) with a fresh
+     Adam: one warm-up step and three timed ones, the launches of every
+     kernel exact with remat's recomputations counted; one accum-8 step from
+     those nets with and without ``--remat``, bitwise equal, with each
+     one's peak device memory (remat's lower); one accum-2 step three ways
+     judged as the train phase's, printed beside its random-weight errors,
+     and its accumulation against the mean of the per-crop gradients;
+  11. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv), three warm cubes of the per-cube
-     loop (with its copies) and a warm training step under torch.profiler,
-     device time by kernel and the device's idle share, and warm steps with
-     and without a sync after each.
+     loop (with its copies), a warm training step and a warm study step
+     under torch.profiler, device time by kernel and the device's idle
+     share, and warm steps with and without a sync after each.
 Then a ``{"kernels": [...]}`` line (the forward norm's two rows also carry
 the 108^3 step's sums as ``step_*`` and one f32 cube's as ``legacy_*``), the nvidia-smi name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -107,7 +121,7 @@ from neuroclear_tpu_torch import test_dice, train_onecube
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
-    D_NAMES, G_NAMES, LOSS_NAMES, ApolloModel)
+    D_NAMES, G_NAMES, LOSS_NAMES, MODEL_NAMES, ApolloModel)
 from neuroclear_tpu_torch.nn.factory import define_G
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.ops import build, conv3x3, inorm, rotation, wconv
@@ -117,7 +131,7 @@ from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
 from neuroclear_tpu_torch.utils import png, tiffio
 from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
-from neuroclear_tpu_torch.utils.weights import kaiming_flat, params_from_numpy
+from neuroclear_tpu_torch.utils.weights import init_flat, load_npz, params_from_numpy
 
 BUDGET_S = 600
 WGMMA_SOURCES = ("conv3x3", "wconv_dw")  # the kernels built on wgmma and TMA
@@ -205,6 +219,11 @@ PRODUCTION_ARGS = [
     "--save_by_iter", "--save_latest_freq", "500", "--lr_policy", "constant",
     "--randomize_projection_depth", "--projection_depth", "10", "--display_histogram",
     "--add_date"]
+# bf16 compute with f32 master weights, as the JAX study runs it
+# (scripts/run_quality_study.sh:91): the timed steps, the resume and the
+# profile; the production command as it is (f32 by default) runs F32_ITERS
+TRAIN_ARGS = [*PRODUCTION_ARGS, "--precision", "bfloat16"]
+F32_ITERS = 2
 NO_ROTATION = ["--preprocess", "randomcrop_randomflip_addColorChannel_addBatchChannel"]
 # Rotated crops held against scipy's float64 bilinear map over the slab:
 # angles away from the multiples of 90 degrees (where sin or cos is zero and
@@ -224,6 +243,21 @@ RESUME_ARGS = ["--lr_policy", "linear", "--n_epochs", "2", "--n_epochs_decay", "
 # loss) is differentiated.
 STEP_LAUNCHES = {"wconv3x3x3": 3, "wconv_dx": 3, "wconv_dw": 3, "pair_sums": 64,
                  "affine_map_act": 64, "pair_sums_gy": 64, "bwd_map": 64, "conv3x3": 0}
+# The same with --remat, per crop.  Each U-Net block runs under its own
+# checkpoint and each of its n units under one more.  PyTorch's recomputation
+# stops at the last tensor its checkpoint saved (early stop, the default):
+# a block's is the input of its last unit, so the block's recomputation runs
+# its first n - 1 units, and each unit's own recomputation runs it once more.
+# A unit's norm is therefore run 3n - 1 times, not n: 5 + 5 + 8 + 5 + 2 = 25
+# for G_A's blocks of 2, 2, 3, 2 and 1 units instead of 10, so 64 + 15 of
+# each forward norm kernel.  The W-pair conv: double_conv1.conv1 and
+# ex_conv1_1.conv0 are their blocks' last units (run twice), and G_B, whole
+# under one checkpoint, runs feat1 twice: 6.  The backward is unchanged.
+REMAT_STEP_LAUNCHES = {**STEP_LAUNCHES, "wconv3x3x3": 6, "pair_sums": 79,
+                       "affine_map_act": 79}
+# The production command without --precision runs in f32: the W-pair conv's
+# gate is bf16-only, so cuDNN runs every conv and the norm kernels run in f32
+F32_STEP_LAUNCHES = {**STEP_LAUNCHES, "wconv3x3x3": 0, "wconv_dx": 0, "wconv_dw": 0}
 # (forward cin, launches per step): dx has cout = cin, dw the (27, 64, cin) shape
 TRAIN_CONV = [(64, 2), (128, 1)]
 # (N, R, C), launches per step, activation after the norm
@@ -251,6 +285,46 @@ STEP_TENSOR_RATIO, STEP_TENSOR_ABS = 3.0, 0.05
 STEP_DIRECT = {"G_A": 0.6, "G_B": 0.04, "D": 0.3}
 PRE_NORM = ("double_conv", "bottom_layer", "ex_double_conv2", "ex_conv1_1", "conv1",
             "conv2", "conv3")
+
+# Study: the JAX study's training command, scripts/run_quality_study.sh:84-93
+# (TRAIN_FLAGS with its default MODEL_FLAGS) as its ga8 run passes it
+# (scripts/run_study_queue.sh:56-62: SAVE_FREQ 25, PRINT_FREQ 7, WATCHDOG
+# 900, --grad_accum 8), resumed as its segments resume from a bank
+# (--continue_train --load_iter), from the six nets the study trained
+# (iter 11000 of its s4 run) and a fresh Adam (its 150 MB optimizer file is
+# left out).  Cut: the volume, 320^3 instead of 700^3 (it holds the
+# 148^3 crop rotated by 45 degrees), and the iterations.
+STUDY_CROP, STUDY_VOLUME, STUDY_ACCUM = 148, 320, 8
+STUDY_ITERS = 4  # one warm-up step, then three timed ones
+STUDY_NAME, STUDY_LOAD_ITER = "apollo148ga8", 11000
+STUDY_STATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "study_state",
+                           "apollo148s4")
+STUDY_ARGS = [
+    "--dataset_mode", "singlevolume",
+    "--preprocess", "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel",
+    "--model", "axial_to_lateral_gan_apollo", "--lambda_plane", "1", "1", "1",
+    "--randomize_projection_depth", "--projection_depth", "10",
+    "--netG", "unet_deconv", "--netG_B", "deep_linear_gen", "--netD", "basic",
+    "--gan_mode", "lsgan", "--init_type", "kaiming", "--norm", "instance",
+    "--batch_size", "1", "--lambda_A", "5",
+    "--crop_size", str(STUDY_CROP), str(STUDY_CROP), str(STUDY_CROP),
+    "--lr_policy", "constant", "--precision", "bfloat16", "--remat", "--save_by_iter",
+    "--save_latest_freq", "25", "--print_freq", "7", "--display_freq", "1000000",
+    "--seed", "0", "--watchdog_secs", "900", "--grad_accum", str(STUDY_ACCUM)]
+# The accumulated gradients against the mean of the per-crop gradients that
+# the smoke computes itself from the same model: the same f32 sums in the
+# same order, so equal but for the device's run-to-run noise (none measured:
+# the step is deterministic); a crop dropped or a wrong divisor moves them by
+# tens of percent
+ACCUM_REL_L2 = 1e-6
+# The trained-weight step (accum-2, 148^3) judged by judge_step's rule, with
+# per-tensor limits against the plain bf16 step set from its own first
+# reading on an H100 at seed 0 (largest G_A 0.0744, G_B 0.0422, D 0.0516:
+# the trained G_B's gradients move with bf16 rounding ten times as much as
+# the random-weight ones, 0.0039, while the kernel path stays closer to f32
+# than the plain path, 0.086 against 0.093 pooled), at two to three times
+# those, below the faults' 0.5 and more (chip_smoke_faults.py runs them here)
+STUDY_DIRECT = {"G_A": 0.15, "G_B": 0.1, "D": 0.15}
 
 T_START = time.monotonic()
 
@@ -755,7 +829,7 @@ def run_slice(seed: int, dev, tmp: str) -> dict:
     vol = synthetic_volume(seed)
     os.makedirs(os.path.join(tmp, "data"))
     np.save(os.path.join(tmp, "data", "volume.npy"), vol)
-    flat = kaiming_flat(UNetDeconv(1, 1), seed)
+    flat = init_flat(UNetDeconv(1, 1), seed=seed)
     os.makedirs(os.path.join(tmp, "ckpt", "smoke"))
     np.savez(os.path.join(tmp, "ckpt", "smoke", "iter_1_net_G_A.npz"), **flat)
 
@@ -819,7 +893,7 @@ def run_dice_cli(seed: int, dev, tmp: str, sl: dict) -> dict:
     tiffio.imwrite(os.path.join(tmp, "data", "volume.tif"), vol)
     tiffio.imwrite(os.path.join(tmp, "gt", "volume.tif"), synthetic_volume(seed, noise=0.0))
     os.makedirs(os.path.join(tmp, "ckpt", "smoke"))
-    flat = kaiming_flat(UNetDeconv(1, 1), seed)
+    flat = init_flat(UNetDeconv(1, 1), seed=seed)
     np.savez(os.path.join(tmp, "ckpt", "smoke", "iter_1_net_G_A.npz"), **flat)
     grid = DiceGrid(pad_for_dicing(vol, 120, 15).shape, 120, 15, 10)
     batches = grid.z_steps * -(-(grid.y_steps * grid.x_steps) // 2)
@@ -888,7 +962,7 @@ def legacy_inputs(seed: int, tmp: str, size: int) -> tuple:
     root = os.path.join(tmp, f"legacy{size}")
     os.makedirs(os.path.join(root, "data"))
     np.save(os.path.join(root, "data", "volume.npy"), vol)
-    flat = kaiming_flat(UNetDeconv(1, 1), seed)
+    flat = init_flat(UNetDeconv(1, 1), seed=seed)
     os.makedirs(os.path.join(root, "ckpt", "smoke"))
     np.savez(os.path.join(root, "ckpt", "smoke", "iter_1_net_G_A.npz"), **flat)
     argv = ["--dataroot", os.path.join(root, "data"), "--name", "smoke", "--checkpoints_dir",
@@ -1110,8 +1184,10 @@ def step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
     return runs
 
 
-def judge_step(runs: dict) -> tuple[list, dict]:
-    """(failures, stats) of the kernel step against the plain steps."""
+def judge_step(runs: dict, direct_limits: dict = STEP_DIRECT) -> tuple[list, dict]:
+    """(failures, stats) of the kernel step against the plain steps, each
+    gradient tensor against the plain bf16 step's within ``direct_limits``
+    (per net group)."""
     (lk, gk), (lp, gp), (lf, gf) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
     bad, stats = [], {"pooled": {}, "direct": {}}
     for name in LOSS_NAMES:
@@ -1129,9 +1205,9 @@ def judge_step(runs: dict) -> tuple[list, dict]:
         direct = sorted(((_rel_l2(gk, gp, [k]), k) for k in ks), reverse=True)
         stats["direct"][group] = direct[:3]
         for d, k in direct:
-            if not d <= STEP_DIRECT[group]:
+            if not d <= direct_limits[group]:
                 bad.append(f"gradient {k}: {d:.4g} off the plain bf16 step "
-                           f"(limit {STEP_DIRECT[group]})")
+                           f"(limit {direct_limits[group]})")
     for k in keys:
         ek, ep = _rel_l2(gk, gf, [k]), _rel_l2(gp, gf, [k])
         if not ek <= STEP_TENSOR_RATIO * ep + STEP_TENSOR_ABS:
@@ -1235,7 +1311,7 @@ def run_train(seed: int, dev, tmp: str) -> dict:
     data = os.path.join(tmp, "train_data")
     tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
     ckpt = os.path.join(tmp, "train_ckpt")
-    argv = ["--dataroot", data, "--name", "smoke", "--checkpoints_dir", ckpt, *PRODUCTION_ARGS,
+    argv = ["--dataroot", data, "--name", "smoke", "--checkpoints_dir", ckpt, *TRAIN_ARGS,
             "--max_iters", str(TRAIN_ITERS), "--seed", str(seed)]
     kernel_ops.reset_launches()
     res = train_onecube.main(argv)
@@ -1258,6 +1334,23 @@ def run_train(seed: int, dev, tmp: str) -> dict:
     log("  last losses: " + ", ".join(f"{k} {v:.5g}" for k, v in res["losses"][-1].items()))
     del res["model"], flat
 
+    # the production command as it is: f32 by default, as in JAX
+    kernel_ops.reset_launches()
+    f32 = train_onecube.main(["--dataroot", data, "--name", "smoke_f32", "--checkpoints_dir",
+                              ckpt, *PRODUCTION_ARGS, "--max_iters", str(F32_ITERS), "--seed",
+                              str(seed)])
+    f32_launches = kernel_ops.launches()
+    expected = {k: F32_ITERS * v for k, v in F32_STEP_LAUNCHES.items()}
+    log(f"  the production command as it is (f32): {F32_ITERS} steps, "
+        + ", ".join(f"{1e3 * t:.1f}" for t in f32["step_seconds"])
+        + f" ms; launches {f32_launches}, expected {expected}")
+    if f32_launches != expected:
+        raise AssertionError(f"f32 launch counts {f32_launches} != {expected}")
+    if f32["model"].visuals["fake"].dtype != torch.float32 or not all(
+            math.isfinite(v) for step in f32["losses"] for v in step.values()):
+        raise AssertionError("the f32 production steps are not f32 or not finite")
+    del f32
+
     rot = check_rotation(vol, dev, seed)
     pooled = check_step_three_ways(seed, vol, dev)
 
@@ -1274,8 +1367,8 @@ def run_train(seed: int, dev, tmp: str) -> dict:
     if vol_out.shape != (72, 72, 72) or vol_out.dtype != np.uint16 or vol_out.std() == 0:
         raise AssertionError(f"trained G_A output {vol_out.shape} {vol_out.dtype} "
                              f"std {vol_out.std()}")
-    return {"launches": launches, "step_ms": step_ms, "flat_ms": flat_ms, "rotation": rot,
-            "losses": res["losses"][-1], "pooled": pooled}
+    return {"launches": launches, "f32_launches": f32_launches, "step_ms": step_ms,
+            "flat_ms": flat_ms, "rotation": rot, "losses": res["losses"][-1], "pooled": pooled}
 
 
 def _model_state_diffs(a, b) -> list:
@@ -1312,7 +1405,7 @@ def run_resume(seed: int, dev, tmp: str) -> dict:
     data = os.path.join(tmp, "data")
     tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
     argv = ["--dataroot", data, "--name", "resume", "--checkpoints_dir",
-            os.path.join(tmp, "ckpt"), *PRODUCTION_ARGS, *RESUME_ARGS, "--seed", str(seed)]
+            os.path.join(tmp, "ckpt"), *TRAIN_ARGS, *RESUME_ARGS, "--seed", str(seed)]
     first = train_onecube.main([*argv, "--max_iters", "3"])
     a = first["model"]
     name = os.path.basename(os.path.dirname(first["checkpoints"][0]))
@@ -1365,6 +1458,179 @@ def run_resume(seed: int, dev, tmp: str) -> dict:
     return {"launches": launches, "rerun": rerun, "resumed": resumed}
 
 
+def study_flats() -> dict:
+    """{NAME: JAX flat dict} of the six nets the JAX study trained."""
+    return {n: load_npz(os.path.join(STUDY_STATE, f"iter_{STUDY_LOAD_ITER}_net_{n}.npz"))
+            for n in MODEL_NAMES}
+
+
+def study_model(flats: dict, dev, plain: bool = False, **overrides) -> ApolloModel:
+    """The study's Apollo model (its flags, ``overrides`` applied) holding
+    the trained nets, with a fresh Adam."""
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *STUDY_ARGS])
+    for k, v in overrides.items():
+        setattr(opt, k, v)
+    model = ApolloModel(opt, dev, plain=plain)
+    model.load_flats(flats)
+    return model
+
+
+def study_inputs(vol: np.ndarray, dev, seed: int, n: int, model: ApolloModel):
+    """(crop(i), draws): n crops' geometry drawn first, then one step's
+    probe draws, as the trainer draws them; each crop cut when asked for."""
+    preprocess = STUDY_ARGS[STUDY_ARGS.index("--preprocess") + 1]
+    dataset = SingleVolumeDataset(vol, (STUDY_CROP,) * 3, preprocess, dev)
+    gen = torch.Generator().manual_seed(seed)
+    geometry = [dataset.draws(gen) for _ in range(n)]
+    draws = model.draw_probes((STUDY_CROP,) * 3, gen)
+    return (lambda i: dataset.crop(*geometry[i])), draws
+
+
+def check_remat(flats: dict, vol: np.ndarray, dev, seed: int) -> dict:
+    """One accum-8 step from the trained nets, the same crops and draws, with
+    --remat and without: the parameters, Adam state and losses required
+    bitwise equal, and the peak device memory of each step (both models
+    resident throughout), the remat one required lower."""
+    models = {remat: study_model(flats, dev, remat=remat) for remat in (True, False)}
+    crop, draws = study_inputs(vol, dev, seed + 6, STUDY_ACCUM, models[True])
+    losses, peaks = {}, {}
+    for remat, model in models.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out, _, _ = model.optimize_parameters_accum(crop, STUDY_ACCUM, draws)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(dev), base)
+        losses[remat] = {k: v.clone() for k, v in out.items()}
+    bad = _model_state_diffs(models[True], models[False])
+    bad += [f"loss {k}" for k in LOSS_NAMES if not torch.equal(losses[True][k], losses[False][k])]
+    gib = {r: (p / 2 ** 30, b / 2 ** 30) for r, (p, b) in peaks.items()}
+    log(f"  accum-{STUDY_ACCUM} step at {STUDY_CROP}^3 from the trained nets: peak device "
+        f"memory {gib[True][0]:.3f} GiB with --remat, {gib[False][0]:.3f} GiB without (both "
+        f"models resident: {gib[True][1]:.3f} GiB before the step); remat against no remat: "
+        + ("parameters, Adam state and losses bitwise equal" if not bad else f"DIFFER: {bad[:6]}"))
+    if bad:
+        raise AssertionError(f"the remat step differs from the step without: {bad[:6]}")
+    if not peaks[True][0] < peaks[False][0]:
+        raise AssertionError(f"remat peak {gib[True][0]:.3f} GiB not below {gib[False][0]:.3f}")
+    del models
+    torch.cuda.empty_cache()
+    return {"peak_gib": gib[True][0], "peak_gib_no_remat": gib[False][0], "base_gib": gib[True][1]}
+
+
+def check_accumulation(model: ApolloModel, crop, n: int, draws) -> float:
+    """``model.accumulate`` against the mean of n per-crop ``gradients``
+    calls, added and divided here: relative L2 over every gradient tensor
+    at most ACCUM_REL_L2, and the losses the mean of the per-crop losses.
+    Returns the relative L2."""
+    losses, _, _, _, g_acc, d_acc = model.accumulate(crop, n, draws)
+    acc = _grads_by_name(model, g_acc, d_acc)
+    del g_acc, d_acc
+    total, per_loss = None, []
+    for i in range(n):
+        crop_losses, _, _, gg, dg = model.gradients(crop(i), draws)
+        grads = _grads_by_name(model, gg, dg)
+        total = grads if total is None else {k: total[k] + grads[k] for k in total}
+        per_loss.append(crop_losses)
+        del gg, dg, grads
+    mean = {k: v / n for k, v in total.items()}
+    err = _rel_l2(acc, mean, list(mean))
+    bad = [name for name in LOSS_NAMES if not math.isclose(
+        float(losses[name]), sum(float(l[name]) for l in per_loss) / n, rel_tol=1e-6)]
+    log(f"  accumulated gradients of {n} crops against the mean of their own gradients: "
+        f"relative L2 {err:.3g} (limit {ACCUM_REL_L2}); losses "
+        + ("the mean of the crops'" if not bad else f"OFF the mean: {bad}"))
+    if not err <= ACCUM_REL_L2 or bad:
+        raise AssertionError(f"accumulation off the mean of the per-crop gradients: {err} {bad}")
+    return err
+
+
+def accum_step_three_ways(flats: dict, vol: np.ndarray, dev, seed: int) -> dict:
+    """One accum-2 step at 148^3 from the trained nets, the same crops and
+    draws, three ways ({label: (losses, gradients)} as ``step_three_ways``);
+    the kernel way's accumulation checked by ``check_accumulation``."""
+    runs, err = {}, None
+    crop = draws = None
+    for label, plain, precision in (("kernels bf16", False, "bfloat16"),
+                                    ("plain bf16", True, "bfloat16"),
+                                    ("plain f32", True, "float32")):
+        model = study_model(flats, dev, plain=plain, precision=precision)
+        if crop is None:
+            crop, draws = study_inputs(vol, dev, seed + 7, 2, model)
+        before = kernel_ops.launches()
+        losses, _, _, _, g_acc, d_acc = model.accumulate(crop, 2, draws)
+        torch.cuda.synchronize()
+        if plain and kernel_ops.launches() != before:
+            raise AssertionError(f"the {label} step launched a kernel")
+        runs[label] = ({k: float(v) for k, v in losses.items()},
+                       _grads_by_name(model, g_acc, d_acc))
+        del g_acc, d_acc
+        if not plain:
+            err = check_accumulation(model, crop, 2, draws)
+        del model
+        torch.cuda.empty_cache()
+    return runs, err
+
+
+def run_study(seed: int, dev, tmp: str, random_pooled: dict) -> dict:
+    """The JAX study's ga8 command through ``train_onecube.main`` from the
+    trained nets: launches exact (remat's recomputations counted), the step
+    median; then ``check_remat`` and the three-way accum-2 step judged by
+    ``judge_step``, printed beside the train phase's random-weight errors."""
+    vol = synthetic_volume(seed, STUDY_VOLUME)
+    data = os.path.join(tmp, "study_data")
+    tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
+    ckpt = os.path.join(tmp, "study_ckpt")
+    os.makedirs(os.path.join(ckpt, STUDY_NAME))
+    for n in MODEL_NAMES:
+        f = f"iter_{STUDY_LOAD_ITER}_net_{n}.npz"
+        os.symlink(os.path.join(STUDY_STATE, f), os.path.join(ckpt, STUDY_NAME, f))
+    argv = ["--dataroot", data, "--checkpoints_dir", ckpt, "--name", STUDY_NAME, *STUDY_ARGS,
+            "--continue_train", "--load_iter", str(STUDY_LOAD_ITER),
+            "--max_iters", str(STUDY_ITERS)]
+    kernel_ops.reset_launches()
+    res = train_onecube.main(argv)
+    launches = kernel_ops.launches()
+    expected = {k: STUDY_ITERS * STUDY_ACCUM * v for k, v in REMAT_STEP_LAUNCHES.items()}
+    per_step = {k: v // STUDY_ITERS for k, v in launches.items()}
+    log(f"  launches over {STUDY_ITERS} steps {launches} ({per_step} per step), expected "
+        f"{expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    if res["total_iters"] != STUDY_LOAD_ITER + 1 + STUDY_ITERS or not all(
+            math.isfinite(v) for step in res["losses"] for v in step.values()):
+        raise AssertionError(f"the study run ended at {res['total_iters']} with losses "
+                             f"{res['losses']}")
+    step_ms = _median_ms(res["step_seconds"])
+    log(f"  step ms (accum {STUDY_ACCUM}, {STUDY_CROP}^3, bf16, --remat): first "
+        f"{1e3 * res['step_seconds'][0]:.1f}, then "
+        + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"][1:])
+        + f"; median {step_ms:.1f} ms")
+    log("  last losses: " + ", ".join(f"{k} {v:.5g}" for k, v in res["losses"][-1].items()))
+    del res
+    torch.cuda.empty_cache()
+
+    flats = study_flats()
+    mem = check_remat(flats, vol, dev, seed)
+    runs, acc_err = accum_step_three_ways(flats, vol, dev, seed)
+    bad, stats = judge_step(runs, STUDY_DIRECT)
+    log(f"  accum-2 step at {STUDY_CROP}^3 from the trained nets, relative error against the "
+        "plain f32 step (kernels bf16 / plain bf16), beside the train phase's at random "
+        "weights: " + "; ".join(
+            f"{g} {ek:.4g} / {ep:.4g} (random {random_pooled[g][0]:.4g} / "
+            f"{random_pooled[g][1]:.4g})" for g, (ek, ep) in stats["pooled"].items()))
+    (lk, _), (lp, _), (lf, _) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
+    log("  losses (f32 | kernels bf16 | plain bf16): " + "; ".join(
+        f"{n} {lf[n]:.5g} | {lk[n]:.5g} | {lp[n]:.5g}" for n in LOSS_NAMES))
+    log("  kernel step against the plain bf16 step, largest relative L2 per tensor: " + "; ".join(
+        f"{g} " + ", ".join(f"{d:.4g} ({k})" for d, k in top)
+        for g, top in stats["direct"].items()))
+    if bad:
+        raise AssertionError("trained-weight kernel step off the plain steps: " + "; ".join(bad))
+    return {"launches": launches, "per_step": per_step, "step_ms": step_ms, **mem,
+            "pooled": stats["pooled"], "accum_err": acc_err}
+
+
 def profile_pipeline(dev, seed: int) -> None:
     """Where the time of the slice goes: a warm run of the tile pipeline
     timed on the host clock, then the same run under torch.profiler, device
@@ -1374,7 +1640,7 @@ def profile_pipeline(dev, seed: int) -> None:
     vol = synthetic_volume(seed)
     vp = pad_for_dicing(vol, 120, 15)
     net = UNetDeconv(1, 1)
-    net.load_state_dict(params_from_numpy(kaiming_flat(net, seed), net))
+    net.load_state_dict(params_from_numpy(init_flat(net, seed=seed), net))
     net.to(dev).eval()
     pipe = DiceInferencePipeline(net, DiceGrid(vp.shape, 120, 15, 10), dtype_inv_scale(vp.dtype),
                                  tile_batch=2, precision="bfloat16", out_dtype=np.uint16,
@@ -1403,7 +1669,7 @@ def profile_legacy(dev, seed: int, cubes: int = 3) -> None:
     the copies, and the device's idle share."""
     model = test_dice.TestModel(argparse.Namespace(checkpoints_dir=".", name="smoke",
                                                    model_suffix="_A"), dev)
-    model.netG.load_state_dict(params_from_numpy(kaiming_flat(model.netG, seed), model.netG))
+    model.netG.load_state_dict(params_from_numpy(init_flat(model.netG, seed=seed), model.netG))
     model.netG.to(dev)
     rng = np.random.default_rng(seed)
     cube = {"A": rng.random((1, TILE, TILE, TILE, 1), np.float32), "A_paths": "0"}
@@ -1448,7 +1714,7 @@ def profile_train_step(dev, seed: int) -> None:
     the host clock, then one under torch.profiler, device time by kernel;
     and the device time and operations of the same step on a crop without
     rotation."""
-    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *PRODUCTION_ARGS])
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *TRAIN_ARGS])
     vol = synthetic_volume(seed, TRAIN_VOLUME)
     dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
     model = ApolloModel(opt, dev)
@@ -1492,6 +1758,35 @@ def profile_train_step(dev, seed: int) -> None:
     rows = device_operations(lambda: step(data=flat))
     log(f"  the same step on a crop without rotation: device time "
         f"{sum(r[1] for r in rows):.1f} ms; {sum(r[2] for r in rows)} device operations")
+
+
+def profile_study_step(dev, seed: int) -> None:
+    """Where the time of the study's accum-8 remat step goes: a warm step
+    from the trained nets timed on the host clock, then one under
+    torch.profiler, device time by kernel and the device's idle share."""
+    model = study_model(study_flats(), dev)
+    vol = synthetic_volume(seed, STUDY_VOLUME)
+    crop, draws = study_inputs(vol, dev, seed + 8, STUDY_ACCUM, model)
+
+    def step():
+        model.optimize_parameters_accum(crop, STUDY_ACCUM, draws)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    step()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    log(f"  warm study step (accum {STUDY_ACCUM}, {STUDY_CROP}^3, bf16, --remat) wall "
+        f"{wall:.1f} ms; device time {busy:.1f} ms (idle share {max(0.0, 1 - busy / wall):.3f}); "
+        f"{sum(r[2] for r in rows)} device operations")
+    for key, ms, count in rows[:16]:
+        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<5d} {key[:90]}")
+    del model
 
 
 def nvidia_smi() -> str:
@@ -1580,6 +1875,13 @@ def main(argv=None) -> int:
         ph.result = (f"state restored exactly; next step {rs['resumed']:.3g} from the "
                      f"in-memory one (two runs from one state: {rs['rerun']:.3g})")
 
+    with Phase("study") as ph, tempfile.TemporaryDirectory() as tmp:
+        st = run_study(args.seed, dev, tmp, tr["pooled"])
+        ph.result = (f"{STUDY_CROP}^3 accum-{STUDY_ACCUM} --remat step {st['step_ms']:.1f} ms "
+                     f"(median of {STUDY_ITERS - 1}); peak {st['peak_gib']:.3f} GiB with remat, "
+                     f"{st['peak_gib_no_remat']:.3f} without, bitwise equal; trained-weight "
+                     f"gradient error against f32 (kernels / plain bf16) {st['pooled']}")
+
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
@@ -1587,6 +1889,7 @@ def main(argv=None) -> int:
                 profile_pipeline(dev, args.seed)
             profile_legacy(dev, args.seed)
             profile_train_step(dev, args.seed)
+            profile_study_step(dev, args.seed)
 
     # Times: the inference kernels' rows sum one 2 x 140^3 tile batch's
     # launches, the training kernels' rows one 108^3 step's; the forward
@@ -1609,7 +1912,8 @@ def main(argv=None) -> int:
         by_path = {"slice": sl["launches"][name], "dice": dc["launches"][name],
                    "legacy": lg["launches"][name], "legacy_tta": lg["tta_launches"][name],
                    "run": lg["run_launches"][name], "train": tr["launches"][name],
-                   "resume": rs["launches"][name]}
+                   "train_f32": tr["f32_launches"][name], "resume": rs["launches"][name],
+                   "study": st["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -19,8 +19,15 @@ check.  Before those, the smoke's rotation check (``check_rotation``: the
 rotated crops of the sampler against a float64 reference) runs as it is and
 with each faulty sampler: the rotation's angle with its sign flipped, and
 its inverse affine transposed (the geometry the sampler reads replaced; the
-reference keeps the real one).  It exits nonzero unless the runs as they
-are pass their checks and every fault fails one.
+reference keeps the real one).  Last, the study phase's two checks at
+148^3 from the trained nets: the accumulation (``check_accumulation``)
+with an accumulator that drops the last crop and with one that divides by
+N - 1, and remat against no remat (``check_remat``) with a remat whose
+recomputation runs a U-Net skip block on a zeroed skip half; and its
+trained-weight step check with the faulty wrappers above that it must
+catch (``TRAINED_STEP_FAULTS``).  It exits
+nonzero unless the runs as they are pass their checks and every fault
+fails one.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ import torch
 import chip_smoke as cs
 from neuroclear_tpu_torch import test_dice
 from neuroclear_tpu_torch.data.dicing import DiceCube
+from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import ApolloModel
+from neuroclear_tpu_torch.nn import generators
 from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
 from neuroclear_tpu_torch.utils.assemble import Assemble_Dice
 
@@ -209,6 +218,91 @@ HOST_FAULTS = [("DiceCube with the y and x steps swapped", DiceCube, "__getitem_
                 _last_cube_dropped)]
 
 
+def _last_crop_dropped(f):
+    """An accumulator that never runs the last crop (and so divides by
+    N - 1)."""
+    def fn(self, crop, n, draws):
+        return f(self, crop, n - 1, draws)
+    return fn
+
+
+def _divided_by_n_minus_1(f):
+    def fn(self, crop, n, draws):
+        losses, real, fake, rec, g_acc, d_acc = f(self, crop, n, draws)
+        scale = n / (n - 1)
+        return losses, real, fake, rec, [g * scale for g in g_acc], [g * scale for g in d_acc]
+    return fn
+
+
+def _skip_zeroed_on_recompute(f):
+    """A remat whose recomputation of a U-Net skip block (the checkpoints
+    of two inputs) runs it on a zeroed skip half."""
+    def fn(block, *args):
+        if len(args) != 2:
+            return f(block, *args)
+        calls = [0]
+
+        def faulty(skip, up):
+            calls[0] += 1
+            return block(skip if calls[0] == 1 else torch.zeros_like(skip), up)
+        return f(faulty, *args)
+    return fn
+
+
+ACCUM_FAULTS = [("accumulator without the last crop", ApolloModel, "accumulate",
+                 _last_crop_dropped),
+                ("accumulator divided by N - 1", ApolloModel, "accumulate",
+                 _divided_by_n_minus_1)]
+REMAT_FAULTS = [("remat recomputing a skip block without its skip half", generators,
+                 "checkpointed", _skip_zeroed_on_recompute)]
+# The faulty wrappers the trained-weight step check must catch: all but the
+# dw that skips one voxel box of each chunk (at most 1 in 32 of its voxels),
+# which moves that step less than bf16 rounding does (measured on an H100:
+# the check passes it); the kernel checks of ``run`` catch it
+TRAINED_STEP_FAULTS = [f for f in FAULTS if f[0] != "dw without the last voxel box of each chunk"]
+
+
+def study_failures(seed, dev) -> bool:
+    """The study phase's accumulation and remat checks as they are (each
+    must pass) and with each of their faults (each must fail), and its
+    trained-weight step check with each of TRAINED_STEP_FAULTS;
+    returns whether all did as they must."""
+    flats, vol = cs.study_flats(), cs.synthetic_volume(seed, cs.STUDY_VOLUME)
+
+    def step():
+        runs, _ = cs.accum_step_three_ways(flats, vol, dev, seed)
+        bad, _ = cs.judge_step(runs, cs.STUDY_DIRECT)
+        if bad:
+            raise AssertionError(f"{len(bad)} failures: " + "; ".join(bad[:3]))
+
+    def accumulation():
+        model = cs.study_model(flats, dev)
+        crop, draws = cs.study_inputs(vol, dev, seed + 7, 2, model)
+        cs.check_accumulation(model, crop, 2, draws)
+
+    def remat():
+        cs.check_remat(flats, vol, dev, seed)
+
+    ok = True
+    for check, name, faults in ((accumulation, "accumulation", ACCUM_FAULTS),
+                                (remat, "remat", REMAT_FAULTS),
+                                (step, "trained-weight step", TRAINED_STEP_FAULTS)):
+        runs = [(f"{name} as it is", contextlib.nullcontext())]
+        runs += [(label, _swapped(owner, attr, wrap)) for label, owner, attr, wrap in faults]
+        for i, (label, fault) in enumerate(runs):
+            try:
+                with fault:
+                    check()
+            except AssertionError as e:
+                cs.log(f"== {label}: the {name} check fails: {e}")
+                ok &= i > 0
+            else:
+                cs.log(f"== {label}: the {name} check passes")
+                ok &= i == 0
+            torch.cuda.empty_cache()
+    return ok
+
+
 def legacy_failures(seed, dev) -> bool:
     """The per-cube loop's check as it is (must pass) and with each host
     fault (each must fail it); returns whether all did as they must."""
@@ -305,6 +399,7 @@ def main(argv=None) -> int:
         with fault:
             ok &= run(label, args.seed, vol, dev) > 0
     ok &= legacy_failures(args.seed, dev)
+    ok &= study_failures(args.seed, dev)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

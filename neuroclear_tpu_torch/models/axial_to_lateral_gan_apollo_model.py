@@ -1,6 +1,7 @@
 """Apollo, the production axial-to-lateral CycleGAN: the port of
-``neuroclear_tpu/models/axial_to_lateral_gan_apollo_model.py`` with one crop
-per step (``--grad_accum 1``).
+``neuroclear_tpu/models/axial_to_lateral_gan_apollo_model.py``, one crop per
+step or, with ``--grad_accum N``, N crops per step in the JAX package's
+default form (``host_step``, ``accumulate`` here).
 
 Two 3D generators (G_A ``unet_deconv``, G_B ``deep_linear_gen``) and four 2D
 discriminators.  D_A compares a random real XY slice with random-depth MIPs
@@ -16,6 +17,9 @@ step mirrors ``make_apollo_step``:
 Parameters and Adam stay in f32; the nets compute in ``--precision``; each
 step's learning rate is the base rate times the schedule's scale
 (``setup``'s two ``LRController``s, stepped by ``update_learning_rate``).
+With ``--remat`` the two generators inside the G loss recompute their
+activations in its backward (``gan_common.maybe_remat``); the D loss and
+inference run as without it.
 The probe draws (the MIP depth and the 18 indices or window starts) are an
 input of the step: the trainer draws them from its generator with
 ``draw_probes``, a test hands in the ones the JAX keys make.  Checkpoints
@@ -33,7 +37,7 @@ from .. import resolve_device
 from ..nn import factory
 from ..nn.schedulers import LRController
 from ..nn.losses import l1_loss
-from ..utils.weights import count_params, kaiming_flat, params_from_numpy
+from ..utils.weights import count_params, init_flat, params_from_numpy
 from . import base_model
 from . import gan_common as gc
 
@@ -84,7 +88,8 @@ class ApolloModel:
             gan_mode=opt.gan_mode, lambda_A=opt.lambda_A,
             lambda_plane=tuple(opt.lambda_plane),
             randomize_projection_depth=opt.randomize_projection_depth,
-            projection_depth=opt.projection_depth, precision=opt.precision)
+            projection_depth=opt.projection_depth, precision=opt.precision,
+            remat=opt.remat)
         # one channel in and out, 64 filters, 3-layer discriminators: the
         # production configuration's (the JAX CLI's defaults)
         self.nets = {
@@ -126,10 +131,11 @@ class ApolloModel:
 
     # ------------------------------------------------------------- weights
 
-    def init_weights(self, seed: int) -> None:
-        """Kaiming weights (the production ``--init_type kaiming``), net i
-        drawn from numpy seed ``seed * 16 + i``."""
-        self.load_flats({name: kaiming_flat(self.nets[name], seed * 16 + i)
+    def init_weights(self, seed: int, init_type: str = "kaiming", gain: float = 0.02) -> None:
+        """Random weights by ``init_type`` (``utils/weights.py::init_flat``;
+        the production command's is kaiming), net i drawn from numpy seed
+        ``seed * 16 + i``."""
+        self.load_flats({name: init_flat(self.nets[name], init_type, gain, seed * 16 + i)
                          for i, name in enumerate(MODEL_NAMES)})
 
     def load_flats(self, flats: dict) -> None:
@@ -196,14 +202,14 @@ class ApolloModel:
     def g_loss(self, real, draws: ProbeDraws):
         """``g_loss_fn``: (total, terms, fake, rec); the discriminators are
         only read (their gradients are not taken)."""
-        fake = self.nets["G_A"](real)
+        fake = gc.maybe_remat(self.nets["G_A"], self.cfg)(real)
         total, terms, rec = self.g_loss_given_fake(real, fake, draws)
         return total, terms, fake, rec
 
     def g_loss_given_fake(self, real, fake, draws: ProbeDraws):
         """The G loss from G_A's output on: (total, terms, rec)."""
         lam_t, lam_s, _ = self.cfg.lambda_norm
-        rec = self.nets["G_B"](fake)
+        rec = gc.maybe_remat(self.nets["G_B"], self.cfg)(fake)
         t = [gc.g_gan(pred, self.cfg) for pred in
              self._probes(G_PROBES, draws.g, draws.depth, {"fake": fake, "rec": rec})]
         g_a_lat = t[0] * lam_t
@@ -243,6 +249,31 @@ class ApolloModel:
         losses = {name: terms[name].detach() for name in LOSS_NAMES}
         return losses, fake, rec, g_grads, d_grads
 
+    def accumulate(self, crop, n: int, draws: ProbeDraws):
+        """The ``--grad_accum n`` step's gradients without the update, as
+        ``host_step`` computes them: ``gradients`` of crop ``crop(i)`` for i
+        in order, each at the current (pre-update) parameters and under the
+        one set of ``draws``, added into f32 accumulators that start at zero,
+        then divided by n.  ``crop`` is called just before its crop's
+        micro-step, so the n crops are never resident together.  Returns
+        (losses, real, fake, rec, g_grads, d_grads): the mean of the
+        per-crop losses, the last crop's real, fake and rec, the mean
+        gradients."""
+        g_acc = [torch.zeros_like(p) for p in self.g_params]
+        d_acc = [torch.zeros_like(p) for p in self.d_params]
+        per_crop = []
+        for i in range(n):
+            real = crop(i)
+            losses, fake, rec, g_grads, d_grads = self.gradients(real, draws)
+            torch._foreach_add_(g_acc, list(g_grads))
+            torch._foreach_add_(d_acc, list(d_grads))
+            per_crop.append(losses)
+            del g_grads, d_grads
+        torch._foreach_div_(g_acc, float(n))
+        torch._foreach_div_(d_acc, float(n))
+        losses = {name: torch.stack([l[name] for l in per_crop]).mean() for name in LOSS_NAMES}
+        return losses, real, fake, rec, g_acc, d_acc
+
     def apply_gradients(self, g_grads, d_grads) -> None:
         """Adam on both parameter sets at the base rate times the schedule's
         scale."""
@@ -260,6 +291,15 @@ class ApolloModel:
         """One training step: (losses, fake, rec); the three volumes are
         kept as the visuals, on the device."""
         losses, fake, rec, g_grads, d_grads = self.gradients(real, draws)
+        self.apply_gradients(g_grads, d_grads)
+        self.visuals = {"real": real, "fake": fake, "rec": rec}
+        return losses, fake, rec
+
+    def optimize_parameters_accum(self, crop, n: int, draws: ProbeDraws):
+        """One ``--grad_accum n`` training step (``accumulate``, then one
+        Adam update on the mean gradients): (losses, fake, rec); the last
+        crop's real, fake and rec are kept as the visuals."""
+        losses, real, fake, rec, g_grads, d_grads = self.accumulate(crop, n, draws)
         self.apply_gradients(g_grads, d_grads)
         self.visuals = {"real": real, "fake": fake, "rec": rec}
         return losses, fake, rec

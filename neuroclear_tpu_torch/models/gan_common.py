@@ -11,9 +11,11 @@ in (a test hands it the draws the JAX keys make).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
+from ..nn import generators
 from ..nn.losses import gan_loss
 from ..ops.sampling import random_projection, random_slice
 
@@ -26,6 +28,7 @@ class GanStepConfig:
     randomize_projection_depth: bool = False
     projection_depth: int = 10
     precision: str = "float32"  # compute dtype; params and Adam stay f32
+    remat: bool = False  # recompute the generators' activations in the G loss
 
     @property
     def lambda_norm(self):
@@ -35,6 +38,18 @@ class GanStepConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.precision == "bfloat16" else torch.float32
+
+
+def maybe_remat(net, cfg: GanStepConfig):
+    """``net``'s forward with its activations recomputed in the backward
+    when ``cfg.remat`` (``maybe_remat`` of the JAX package): per block for a
+    net that has it (``block_remat``, the U-Net), else the whole forward
+    (``DeepLinearGenerator``: only its input and output are kept)."""
+    if not cfg.remat:
+        return net
+    if getattr(net, "block_remat", False):
+        return functools.partial(net, remat=True)
+    return lambda x: generators.checkpointed(net, x)
 
 
 def make_adam(params, lr: float, beta1: float) -> torch.optim.Adam:

@@ -6,15 +6,38 @@ cycle.
 ``plain=True`` builds the same network on the kernels' plain PyTorch
 versions, whatever the device: the reference a run on the card is held
 against.
+
+``remat=True`` in a forward call recomputes activations in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) at the JAX package's boundaries
+(``nn/generators.py``, ``UNetDeconv.remat``): each conv -> norm -> ReLU unit
+of a ``ConvBlock``, and each block of the U-Net with its skip concatenation
+inside, so that the saved residuals are the two halves and one block's
+interior is alive at a time.  The forward values, and so the gradients, are
+the same bits as without it: the recomputation runs the same operations on
+the same inputs.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .core import Conv, ConvTranspose, max_pool, sigmoid
 from .norms import get_norm_spec
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (only its inputs are kept).  The nets draw no random numbers, so no RNG
+    state is stashed."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _direct(fn, *args):
+    return fn(*args)
 
 
 class ConvBlock(nn.Module):
@@ -30,9 +53,14 @@ class ConvBlock(nn.Module):
                                              plain=plain))
             self.add_module(f"norm{i}", spec.layer("relu", plain=plain))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def unit(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"norm{i}")(getattr(self, f"conv{i}")(x))
+
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """With ``remat`` each unit is recomputed in the backward pass."""
+        ck = checkpointed if remat else _direct
         for i in range(self.n):
-            x = getattr(self, f"norm{i}")(getattr(self, f"conv{i}")(x))
+            x = ck(functools.partial(self.unit, i), x)
         return x
 
 
@@ -55,13 +83,26 @@ class UNetDeconv(nn.Module):
         self.one_by_one = Conv(s, output_nc, 1, 1, 0)
         self.one_by_one_2 = Conv(output_nc, output_nc, 1, 1, 0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, D, H, W, input_nc), D, H and W multiples of 4."""
-        conv1 = self.double_conv1(x)
-        conv2 = self.double_conv2(max_pool(conv1, 2))
-        bottom = self.bottom_layer(max_pool(conv2, 2))
-        ex2 = self.ex_double_conv2(torch.cat([conv2, self.t_conv2(bottom)], dim=-1))
-        ex1 = self.ex_conv1_1(torch.cat([conv1, self.t_conv1(ex2)], dim=-1))
+    # gan_common.maybe_remat: this net recomputes per block, not whole
+    block_remat = True
+
+    @staticmethod
+    def _skip(block: ConvBlock, remat: bool, skip: torch.Tensor,
+              up: torch.Tensor) -> torch.Tensor:
+        return block(torch.cat([skip, up], dim=-1), remat=remat)
+
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """x: (N, D, H, W, input_nc), D, H and W multiples of 4.  With
+        ``remat`` each block, and each unit inside it, is recomputed in the
+        backward pass."""
+        ck = checkpointed if remat else _direct
+        conv1 = ck(functools.partial(self.double_conv1, remat=remat), x)
+        conv2 = ck(functools.partial(self.double_conv2, remat=remat), max_pool(conv1, 2))
+        bottom = ck(functools.partial(self.bottom_layer, remat=remat), max_pool(conv2, 2))
+        ex2 = ck(functools.partial(self._skip, self.ex_double_conv2, remat), conv2,
+                 self.t_conv2(bottom))
+        ex1 = ck(functools.partial(self._skip, self.ex_conv1_1, remat), conv1,
+                 self.t_conv1(ex2))
         return sigmoid(self.one_by_one_2(self.one_by_one(ex1)))
 
 

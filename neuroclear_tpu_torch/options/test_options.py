@@ -6,16 +6,23 @@ dataset registries.
 
 Values whose paths are not ported are refused by ``check_ported`` with a
 pointer to ROADMAP.md; flags the JAX CLI parses only for parity with the
-original repository are accepted and change nothing here either.
+original repository, or that inference does not read (the init scheme and
+seed of weights that a checkpoint replaces), are accepted and change
+nothing here either.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+from ..utils.weights import INIT_TYPES
+from . import add_gpu_ids, device_of, refuse_other_values
+from . import print_options as _print_options
 
 # value flags whose other values select paths the port does not have
 PORTED_VALUES = {"netG": ("unet_deconv",), "dataset_mode": ("diceImage",),
-                 "image_dimension": (3,)}
+                 "image_dimension": (3,), "norm": ("instance",), "ngf": (64,)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,6 +90,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "that a JAX command line parses")
     # one generator and one dataset are ported
     p.add_argument("--netG", default="unet_deconv")
+    p.add_argument("--norm", default="instance")
+    p.add_argument("--ngf", type=int, default=64)
+    p.add_argument("--no_dropout", action="store_true",
+                   help="no effect: the generator has no dropout; taken so that a JAX "
+                        "command line parses")
+    p.add_argument("--init_type", default="normal", choices=INIT_TYPES,
+                   help="no effect: the checkpoint's weights replace the initial ones")
+    p.add_argument("--seed", type=int, default=None,
+                   help="no effect: inference draws nothing; taken so that a JAX command "
+                        "line parses")
+    p.add_argument("--num_test", type=int, default=3000,
+                   help="no effect (the JAX CLI keeps it for parity only)")
     p.add_argument("--dataset_mode", default="diceImage")
     p.add_argument("--image_dimension", type=int, default=3)
     p.add_argument("--preprocess", default="none",
@@ -90,16 +109,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serial_batches", action="store_true",
                    help="no effect: the loader always iterates in file order (test_dice.py "
                         "sets it); taken so that a JAX command line parses")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_gpu_ids(p)
     return p
 
 
 def check_ported(opt) -> None:
     """Raise NotImplementedError for an option whose path is not ported."""
-    for flag, values in PORTED_VALUES.items():
-        if getattr(opt, flag) not in values:
-            raise NotImplementedError(f"--{flag} {getattr(opt, flag)} is not ported yet "
-                                      f"(ROADMAP.md, queue 1); the port takes {values}")
+    refuse_other_values(opt, PORTED_VALUES)
+    device_of(opt)
     if not opt.dice_size or opt.dice_size[0] <= 0:
         raise ValueError("--dice_size must be given, e.g. --dice_size 120 120 120")
 
@@ -108,3 +125,11 @@ def parse(argv=None):
     opt = build_parser().parse_args(argv)
     check_ported(opt)
     return opt
+
+
+def print_options(opt) -> None:
+    """Print the options and write them to ``{phase}_opt.txt`` under the
+    results folder, as ``BaseOptions.print_options`` writes them."""
+    name = opt.name if opt.data_name is None else f"{opt.data_name}_by_{opt.name}"
+    _print_options(opt, build_parser(),
+                   os.path.join(opt.results_dir, name, f"{opt.phase}_opt.txt"))

@@ -1,15 +1,18 @@
 """Options of the port's single-volume trainer: the flags of the JAX
 package's ``options/base_options.py`` and ``options/train_options.py`` that
-the production Apollo command and its resume use, under the same names and
-defaults, plus ``--device``.  The JAX options modules cannot be reused: they
-import the JAX model and dataset registries.
+its single-volume trainer takes, under the same names and defaults, plus
+``--device``.  The JAX options modules cannot be reused: they import the
+JAX model and dataset registries.
 
-The defaults are the JAX CLI's, except where the port does not take the JAX
-default (``--model``, ``--init_type``, ``--crop_size``, ``--preprocess``,
-``--seed``): there they are the production configuration's, and a fixed
-seed; ``--precision`` defaults to bfloat16, the JAX package's training
-benchmark default.  Options whose paths are not ported are refused by
-``check_options`` with a pointer to ROADMAP.md.
+The defaults are the JAX CLI's (``--precision float32``, ``--seed`` None:
+a fresh seed per run, drawn from ``os.urandom`` and written to
+``train_opt.txt``; ``--init_type normal``), except where the JAX default
+selects a path the port does not have (``--model``, ``--dataset_mode``,
+``--crop_size``, ``--preprocess``): there they are the production
+configuration's.  A flag whose value selects a path that is not ported is
+refused by ``check_options`` with a pointer to ROADMAP.md; flags the JAX
+CLI keeps only for parity (``--num_threads``, ``--no_dropout``) are taken
+and change nothing.
 """
 
 from __future__ import annotations
@@ -19,8 +22,14 @@ import datetime
 import os
 
 from ..data.singlevolume_dataset import check_preprocess
+from ..utils.weights import INIT_TYPES
+from . import ROADMAP, add_gpu_ids, device_of, refuse_other_values
+from . import print_options as _print_options
 
-NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
+NOT_PORTED = f"is not ported yet {ROADMAP}"
+# value flags the production nets fix: one channel in and out, 64 filters
+PORTED_VALUES = {"input_nc": (1,), "output_nc": (1,), "ngf": (64,), "ndf": (64,),
+                 "netD": ("basic",), "norm": ("instance",)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,15 +55,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--netG", default="unet_deconv")
     p.add_argument("--netG_B", default="deep_linear_gen")
     p.add_argument("--netD", default="basic")
+    p.add_argument("--input_nc", type=int, default=1)
+    p.add_argument("--output_nc", type=int, default=1)
+    p.add_argument("--ngf", type=int, default=64)
+    p.add_argument("--ndf", type=int, default=64)
+    p.add_argument("--n_layers_D", type=int, default=3,
+                   help="depth of the n_layers discriminator (not read by basic, as in JAX)")
     p.add_argument("--norm", default="instance")
-    p.add_argument("--init_type", default="kaiming")
+    p.add_argument("--init_type", default="normal", choices=INIT_TYPES,
+                   help="weight init scheme")
+    p.add_argument("--init_gain", type=float, default=0.02,
+                   help="std or gain of the normal, xavier and orthogonal inits")
+    p.add_argument("--no_dropout", action="store_true",
+                   help="no effect: these generators have no dropout; taken so that a JAX "
+                        "command line parses")
     p.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
     p.add_argument("--lambda_A", type=float, default=10.0)
     p.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1])
     p.add_argument("--randomize_projection_depth", action="store_true")
     p.add_argument("--projection_depth", type=int, default=10)
-    p.add_argument("--precision", default="bfloat16", choices=["float32", "bfloat16"],
+    p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype; parameters and Adam stay float32")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the generators' activations in the G loss's backward "
+                        "(per conv unit and per U-Net block; the backward generator whole)")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="crops per optimizer step: the mean of their gradients at the "
+                        "pre-update parameters, under one step's probe draws, then one Adam "
+                        "update; each crop is cut just before its micro-step")
+    p.add_argument("--fused_accum", action="store_true",
+                   help="--grad_accum as one program over the resident batch: not ported "
+                        "yet (ROADMAP.md, queue 1, item 1)")
     # the optimizer and its schedule
     p.add_argument("--beta1", type=float, default=0.1)
     p.add_argument("--lr", type=float, default=0.0001)
@@ -83,6 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="iterations between TensorBoard figure refreshes")
     p.add_argument("--display_histogram", action="store_true",
                    help="log intensity histograms of the visuals to TensorBoard")
+    p.add_argument("--display_id", type=int, default=1,
+                   help="<= 0 turns the loss plot (TensorBoard scalars) off")
+    p.add_argument("--no_html", action="store_true",
+                   help="write no web/ folder: no TIFF snapshots, no HTML page")
+    p.add_argument("--update_html_freq", type=int, default=1000,
+                   help="iterations between refreshes of web/index.html")
     p.add_argument("--save_latest_freq", type=int, default=500)
     p.add_argument("--save_by_iter", action="store_true",
                    help="name checkpoints iter_<N> instead of overwriting 'latest'")
@@ -93,12 +130,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exit 42 if no iteration completes for this many seconds (armed "
                         "after the first); resume with --continue_train --load_iter")
     p.add_argument("--verbose", action="store_true", help="print the networks")
-    p.add_argument("--seed", type=int, default=0,
-                   help="seeds the weights, the crops and the probe draws")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # not ported, refused
-    p.add_argument("--remat", action="store_true", help=f"activation recomputation {NOT_PORTED}")
-    p.add_argument("--grad_accum", type=int, default=1, help=f"values > 1 {NOT_PORTED}")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace (Chrome JSON) of the hot loop here")
+    p.add_argument("--num_threads", type=int, default=8,
+                   help="no effect: the crops are cut on the device; taken so that a JAX "
+                        "command line parses")
+    p.add_argument("--seed", type=int, default=None,
+                   help="seeds the weights, the crops and the probe draws (a fresh one from "
+                        "os.urandom when omitted)")
+    add_gpu_ids(p)
     return p
 
 
@@ -107,42 +147,37 @@ def check_options(opt) -> None:
     refused = [
         (opt.model != "axial_to_lateral_gan_apollo", f"--model {opt.model}"),
         (opt.dataset_mode != "singlevolume", f"--dataset_mode {opt.dataset_mode}"),
-        (opt.remat, "--remat"),
-        (opt.grad_accum > 1, "--grad_accum > 1"),
-        (opt.batch_size != 1, "--batch_size > 1"),
-        (opt.init_type != "kaiming", f"--init_type {opt.init_type}"),
-        (opt.netD != "basic", f"--netD {opt.netD}"),
-        (opt.norm != "instance", f"--norm {opt.norm}"),
+        (opt.batch_size != 1, f"--batch_size {opt.batch_size} (--grad_accum takes its crops "
+                              "one at a time, with --batch_size 1, as in JAX)"),
+        (opt.fused_accum, "--fused_accum (item 1)"),
     ]
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"{what} {NOT_PORTED}")
+    refuse_other_values(opt, PORTED_VALUES)
+    device_of(opt)
+    if opt.grad_accum < 1:
+        raise ValueError(f"--grad_accum {opt.grad_accum}: at least 1")
     check_preprocess(opt.preprocess)
 
 
 def parse(argv=None):
     """Parse and check; with ``--add_date`` (and not ``--continue_train``)
-    the name gets its date prefix, as ``BaseOptions.parse`` gives it."""
+    the name gets its date prefix, as ``BaseOptions.parse`` gives it.
+    Without ``--seed`` a seed is drawn from ``os.urandom`` (as
+    ``BaseModel.__init__`` of the JAX package draws it) and printed."""
     opt = build_parser().parse_args(argv)
     check_options(opt)
+    if opt.seed is None:
+        opt.seed = int.from_bytes(os.urandom(4), "little")
+        print(f"--seed not given: drew seed {opt.seed}", flush=True)
     if opt.add_date and not opt.continue_train:
         opt.name = datetime.datetime.now().strftime("%Y%m%d-%H%M") + "_" + opt.name
     return opt
 
 
 def print_options(opt) -> None:
-    """Print the options, marking those off their defaults, and write them
-    to ``<checkpoints_dir>/<name>/train_opt.txt``."""
-    parser = build_parser()
-    lines = ["----------------- Options ---------------"]
-    for k, v in sorted(vars(opt).items()):
-        default = parser.get_default(k)
-        comment = f"\t[default: {default}]" if v != default else ""
-        lines.append("{:>25}: {:<30}{}".format(str(k), str(v), comment))
-    lines.append("----------------- End -------------------")
-    message = "\n".join(lines)
-    print(message, flush=True)
-    expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
-    os.makedirs(expr_dir, exist_ok=True)
-    with open(os.path.join(expr_dir, "train_opt.txt"), "wt") as f:
-        f.write(message + "\n")
+    """Print the options and write them to
+    ``<checkpoints_dir>/<name>/train_opt.txt``."""
+    _print_options(opt, build_parser(), os.path.join(opt.checkpoints_dir, opt.name,
+                                                     "train_opt.txt"))

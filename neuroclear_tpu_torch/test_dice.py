@@ -37,7 +37,7 @@ from .data import create_dataset
 from .data.diceImage_dataset import DiceImageDataSet
 from .data.image_folder import make_dataset
 from .models.test_model import TestModel
-from .options import test_options
+from .options import device_of, test_options
 from .parallel import metrics as device_metrics
 from .parallel.dice_infer import DiceInferencePipeline
 from .utils import html, imageops, tiffio
@@ -63,8 +63,11 @@ def _volume_out_path(opt, web_dir: str) -> str:
 
 
 def parse_options(argv=None):
-    """The options, with the test parameters that the JAX CLI hard-codes."""
+    """The options, with the test parameters that the JAX CLI hard-codes;
+    the options dump holds them as parsed, as the JAX CLI's does."""
     opt = test_options.parse(argv)
+    opt.device = resolve_device(device_of(opt))
+    test_options.print_options(opt)
     opt.num_threads = 0
     opt.batch_size = 1
     opt.serial_batches = True
@@ -78,7 +81,7 @@ def main(argv=None) -> dict:
     (the path written during the harvest, or None), "seconds" (inference and
     assembly wall time), "voxels", "metrics" (None without --dataroot_gt)}."""
     opt = parse_options(argv)
-    device = resolve_device(opt.device)
+    device = opt.device
     # f32 convs in full f32, as the JAX package's HIGHEST precision
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -13,21 +13,33 @@ unchanged:
         --randomize_projection_depth --projection_depth 10 --display_histogram --add_date
 
 and resumes with ``--continue_train --load_iter N`` (the same command and
-``--name``, without ``--add_date``'s new stamp).  It reads the volume (the
-first TIFF or ``.npy`` in ``--dataroot``), keeps it on the device, and for
-each iteration draws an augmented crop (rotation, offsets and flips), takes
-one Apollo step (models/axial_to_lateral_gan_apollo_model.py) at the
-schedule's learning rate, and steps the schedule.  Every ``--print_freq``
+``--name``, without ``--add_date``'s new stamp).  Without ``--precision`` it
+computes in float32 and without ``--seed`` it draws a fresh seed, as the
+JAX CLI does; the JAX study's commands (``scripts/run_quality_study.sh``)
+add ``--precision bfloat16 --remat --seed 0`` and, for its ga8 run,
+``--grad_accum 8``.  It reads the volume (the first TIFF or ``.npy`` in
+``--dataroot``), keeps it on the device, and for each iteration draws an
+augmented crop (rotation, offsets and flips), takes one Apollo step
+(models/axial_to_lateral_gan_apollo_model.py) at the schedule's learning
+rate, and steps the schedule.  With ``--grad_accum N`` an iteration draws
+the N crops' geometry, then the step's probe draws, and cuts each crop just
+before its micro-step (the JAX package's ``per_crop_sampler``; its
+host-window sampler and the environment switches ``NEUROCLEAR_HOST_WINDOW``
+and ``NEUROCLEAR_ACCUM_DEVICE_VOL`` are not ported: the volume stays on the
+card).  Every ``--print_freq``
 iterations it reads the eleven losses back (the one device sync of the
 loop), prints them and appends them to ``loss_log.txt``; every
 ``--save_latest_freq`` iterations and at ``--max_iters`` it writes
 ``{suffix}_net_{NAME}.npz`` for the six nets and ``{suffix}_optim.npz`` in
 the JAX package's formats under ``<checkpoints_dir>/<name>/``, with TIFF
-snapshots of the visuals.  The iteration count on resume follows the JAX
-trainer (``--load_iter N`` resumes at N + 1, so the names it writes are the
-JAX trainer's).  It runs on the card unless ``--device cpu`` is given.
-``--remat``, ``--grad_accum`` > 1 and models other than Apollo are not
-ported yet (ROADMAP.md).
+snapshots of the visuals (not with ``--no_html``), and every
+``--update_html_freq`` iterations refreshes ``web/index.html`` with PNG
+thumbnails of them.  The iteration count on resume follows the JAX trainer
+(``--load_iter N`` resumes at N + 1, so the names it writes are the JAX
+trainer's).  ``--profile_dir`` writes a ``torch.profiler`` trace of the
+loop.  It runs on the card unless ``--device cpu`` (or ``--gpu_ids -1``) is
+given.  ``--fused_accum`` and models other than Apollo are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ from . import resolve_device
 from .data.image_folder import make_dataset
 from .data.singlevolume_dataset import SingleVolumeDataset
 from .models.axial_to_lateral_gan_apollo_model import LOSS_NAMES, ApolloModel
-from .options import train_options
+from .options import device_of, train_options
 from .utils import tiffio
 from .utils.visualizer import Visualizer
 
@@ -109,7 +121,7 @@ def setup(opt):
     """The trainer's pieces for parsed options: (device, dataset, model);
     with ``--continue_train`` the model holds the checkpoint and its
     optimizer state."""
-    device = resolve_device(opt.device)
+    device = resolve_device(device_of(opt))
     # f32 convs in full f32, as the JAX package's HIGHEST precision
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,11 +131,35 @@ def setup(opt):
     dataset = SingleVolumeDataset(vol, opt.crop_size, opt.preprocess, device)
     print(f"volume {path} {vol.shape} {vol.dtype} on {device}; crops "
           f"{tuple(opt.crop_size)} {opt.precision}; augmentation: on-device chain "
-          f"(rotation {dataset.rotate})", flush=True)
+          f"(rotation {dataset.rotate}); seed {opt.seed}", flush=True)
+    if opt.grad_accum > 1:
+        print(f"gradient accumulation: {opt.grad_accum} crops per optimizer step", flush=True)
     model = ApolloModel(opt, device)
-    model.init_weights(opt.seed)
+    model.init_weights(opt.seed, opt.init_type, opt.init_gain)
     model.setup(opt)
     return device, dataset, model
+
+
+def _profiler(opt, device):
+    """A started ``torch.profiler`` for ``--profile_dir`` (None without it)."""
+    if not opt.profile_dir:
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, opt) -> None:
+    if prof is None:
+        return
+    prof.stop()
+    os.makedirs(opt.profile_dir, exist_ok=True)
+    path = os.path.join(opt.profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}", flush=True)
 
 
 def main(argv=None) -> dict:
@@ -148,15 +184,25 @@ def main(argv=None) -> dict:
     log = torch.empty((opt.max_iters, len(LOSS_NAMES)), device=device)
     marks = [_mark(device)]
     paths, snapshots, t_data = [], [], 0.0
+    prof = _profiler(opt, device)
     iter_data_time = time.time()
     while True:
-        real = dataset.sample(gen)
+        # the crops' draws first, then the step's probe draws, as the JAX
+        # trainer takes the sampler's key before the step's
+        if opt.grad_accum > 1:
+            geometry = [dataset.draws(gen) for _ in range(opt.grad_accum)]
+        else:
+            real = dataset.sample(gen)
         draws = model.draw_probes(opt.crop_size, gen)
         iter_start_time = time.time()
         if (total_iters - loaded_iter) % opt.print_freq == 0:
             t_data = iter_start_time - iter_data_time
         total_iters += opt.batch_size
-        step_losses, _, _ = model.optimize_parameters(real, draws)
+        if opt.grad_accum > 1:
+            step_losses, _, _ = model.optimize_parameters_accum(
+                lambda i: dataset.crop(*geometry[i]), opt.grad_accum, draws)
+        else:
+            step_losses, _, _ = model.optimize_parameters(real, draws)
         values = torch.stack([step_losses[n] for n in LOSS_NAMES])
         if opt.max_iters:
             log[total_iters - loaded_iter - 1] = values
@@ -176,7 +222,11 @@ def main(argv=None) -> dict:
                 raise SystemExit(3)
             t_comp = (time.time() - iter_start_time) / opt.batch_size
             visualizer.print_current_losses(1, total_iters, losses, t_comp, t_data)
-            visualizer.plot_current_losses(total_iters, losses)
+            if opt.display_id > 0:
+                visualizer.plot_current_losses(total_iters, losses)
+
+        if total_iters % opt.update_html_freq == 0:
+            visualizer.update_html(model.visuals, total_iters)
 
         if total_iters % opt.save_latest_freq == 0:
             print("----------------------------------")
@@ -199,6 +249,7 @@ def main(argv=None) -> dict:
             paths += model.save_networks(f"iter_{total_iters}" if opt.save_by_iter
                                          else "latest")
             break
+    _stop_profiler(prof, opt)
     if watchdog:
         watchdog.stop()
     visualizer.close()

@@ -2,9 +2,12 @@
 
 ``Visualizer`` is the single-volume trainer's reporting: console loss lines
 and ``loss_log.txt`` in the JAX package's format, TIFF snapshots of the
-visuals (through the port's own codec, ``utils/tiffio.py``), and TensorBoard
-scalars, slice and MIP figures, histograms and the options where
-``torch.utils.tensorboard`` (and, for the figures, ``matplotlib``) import.
+visuals (through the port's own codec, ``utils/tiffio.py``) and an HTML page
+of their middle slices as PNG (``web/index.html``, newest iteration first,
+as the original repository's trainer kept it), both under ``web/`` unless
+``--no_html`` (the JAX package's gate), and TensorBoard scalars, slice and
+MIP figures, histograms and the options where ``torch.utils.tensorboard``
+(and, for the figures, ``matplotlib``) import.
 A sink that does not import is reported as off once; it is never a stand-in
 for anything else, and nothing here catches an error of the training step.
 The visuals are device tensors, read back only when a sink takes them.
@@ -17,11 +20,12 @@ original's per-item ``metrics.txt`` lines.
 from __future__ import annotations
 
 import os
+import re
 import time
 
 import numpy as np
 
-from . import tiffio
+from . import html, tiffio
 from .imageops import save_image, tensor2im
 
 
@@ -40,10 +44,12 @@ class Visualizer:
         self.opt = opt
         self.name = opt.name
         self.display_histogram = opt.display_histogram
+        self.use_html = not opt.no_html
         self.web_dir = os.path.join(opt.checkpoints_dir, opt.name, "web")
         self.img_dir = os.path.join(self.web_dir, "images")
-        print(f"create web directory {self.web_dir}...")
-        os.makedirs(self.img_dir, exist_ok=True)
+        if self.use_html:
+            print(f"create web directory {self.web_dir}...")
+            os.makedirs(self.img_dir, exist_ok=True)
 
         self.tb_writer = self.plt = None
         try:
@@ -114,13 +120,36 @@ class Visualizer:
 
     def save_current_visuals(self, visuals, epoch) -> list:
         """Each visual as ``{epoch}_{label}.tif`` (uint8) under web/images;
-        returns the paths."""
+        returns the paths (none with ``--no_html``)."""
         paths = []
+        if not self.use_html:
+            return paths
         for label, image in visuals.items():
             path = os.path.join(self.img_dir, f"{epoch}_{label}.tif")
             tiffio.imwrite(path, tensor2im(_to_zyx(image), imtype=np.uint8))
             paths.append(path)
         return paths
+
+    def update_html(self, visuals, total_iters) -> None:
+        """The middle slice of each visual as ``iter{N}_{label}.png`` under
+        web/images, then ``web/index.html`` rewritten with every iteration
+        whose thumbnails are there (a resumed run's included), newest
+        first."""
+        if not self.use_html:
+            return
+        labels = list(visuals)
+        for label, image in visuals.items():
+            vol = tensor2im(_to_zyx(image), imtype=np.uint8)
+            save_image(vol[vol.shape[0] // 2] if vol.ndim == 3 else vol,
+                       os.path.join(self.img_dir, f"iter{total_iters}_{label}.png"))
+        found = {int(m.group(1)) for m in (re.fullmatch(rf"iter(\d+)_{re.escape(labels[0])}\.png", f)
+                                           for f in os.listdir(self.img_dir)) if m}
+        page = html.HTML(self.web_dir, f"Experiment name = {self.name}", refresh=1)
+        for n in sorted(found, reverse=True):
+            page.add_header(f"iteration [{n}]")
+            ims = [f"images/iter{n}_{label}.png" for label in labels]
+            page.add_images(ims, labels, ims, width=256)
+        page.save()
 
     def plot_current_losses(self, plot_count, losses):
         if self.tb_writer is None:

@@ -74,26 +74,69 @@ def flat_from_module(net: nn.Module) -> dict:
     return {key: to_numpy(to_jax(p)) for key, to_jax, _, p in jax_named_params(net)}
 
 
-def kaiming_flat(net: nn.Module, seed: int) -> dict:
-    """Random weights for ``net`` in the JAX flat format, as the JAX
-    package's ``init_weight(..., 'kaiming')`` draws them: N(0, 2 / fan_in)
-    with torch's fan rule (fan_in = I*k^dim for a conv, O*k^dim for a
-    transposed conv), zero biases.  Drawn from numpy, so both packages can
-    load them."""
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
+
+
+def fans(kshape, transpose: bool = False) -> tuple:
+    """(fan_in, fan_out) of a kernel of JAX shape (k..., I, O) by torch's
+    rule: fan_in = I * prod(k) for a conv; for a transposed conv, whose
+    torch weight is (I, O, k...), torch keys off dim 1, so fan_in = O *
+    prod(k) (``nn/core.py::_fans``)."""
+    receptive = math.prod(kshape[:-2])
+    i, o = kshape[-2:]
+    if transpose:
+        return o * receptive, i * receptive
+    return i * receptive, o * receptive
+
+
+def init_weight(rng: np.random.Generator, kshape, init_type: str, gain: float,
+                transpose: bool = False) -> np.ndarray:
+    """A float32 kernel of JAX shape (k..., I, O) drawn from ``rng`` as
+    ``init_weight`` of the JAX package draws it: normal N(0, gain); xavier
+    N(0, gain * sqrt(2 / (fan_in + fan_out))); kaiming N(0, sqrt(2 /
+    fan_in)); orthogonal: the Q of a QR of a Gaussian matrix with the signs
+    of R's diagonal folded in, on the (O, rest) flattening (rest in the
+    order (k..., I)), times gain."""
+    kshape = tuple(int(k) for k in kshape)
+    fan_in, fan_out = fans(kshape, transpose)
+    if init_type == "orthogonal":
+        rows = kshape[-1]
+        cols = math.prod(kshape) // rows
+        q, r = np.linalg.qr(rng.standard_normal((max(rows, cols), min(rows, cols))))
+        q = q * np.sign(np.diagonal(r))
+        if rows < cols:
+            q = q.T
+        w = q[:rows, :cols] * gain
+        w = w.reshape((rows,) + kshape[:-1]).transpose(tuple(range(1, len(kshape))) + (0,))
+        return np.ascontiguousarray(w, np.float32)
+    if init_type == "normal":
+        std = gain
+    elif init_type == "xavier":
+        std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+    elif init_type == "kaiming":
+        std = math.sqrt(2.0 / fan_in)
+    else:
+        raise NotImplementedError(f"initialization method [{init_type}] is not implemented; "
+                                  f"the port has {INIT_TYPES}")
+    return (rng.standard_normal(kshape) * std).astype(np.float32)
+
+
+def init_flat(net: nn.Module, init_type: str = "kaiming", gain: float = 0.02,
+              seed: int = 0) -> dict:
+    """Random weights for ``net`` in the JAX flat format, each kernel drawn
+    by ``init_weight`` in module order from numpy seed ``seed`` (so both
+    packages can load them), zero biases, as the JAX layers' ``init``
+    methods give them."""
     rng = np.random.default_rng(seed)
     flat = {}
     for name, layer in net.named_modules():
         if not isinstance(layer, _LAYERS):
             continue
         w = layer.weight
-        if isinstance(layer, Conv):
-            o, i = w.shape[:2]
-        else:
-            i, o = w.shape[:2]
-        ks = tuple(w.shape[2:])
-        fan_in = (o if isinstance(layer, ConvTranspose) else i) * math.prod(ks)
-        std = math.sqrt(2.0 / fan_in)
-        flat[f"{name}.w"] = (rng.standard_normal(ks + (i, o)) * std).astype(np.float32)
+        transpose = isinstance(layer, ConvTranspose)
+        i, o = (w.shape[0], w.shape[1]) if transpose else (w.shape[1], w.shape[0])
+        flat[f"{name}.w"] = init_weight(rng, tuple(w.shape[2:]) + (i, o), init_type, gain,
+                                        transpose)
         if layer.bias is not None:
             flat[f"{name}.b"] = np.zeros((o,), np.float32)
     return flat

@@ -439,12 +439,12 @@ def test_run_matches_run_streaming_on_the_card(dev):
     from neuroclear_tpu_torch.nn.generators import UNetDeconv
     from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
     from neuroclear_tpu_torch.utils.imageops import pad_for_dicing
-    from neuroclear_tpu_torch.utils.weights import kaiming_flat, params_from_numpy
+    from neuroclear_tpu_torch.utils.weights import init_flat, params_from_numpy
 
     vol = np.random.default_rng(2).integers(0, 65535, (70, 60, 50)).astype(np.uint16)
     vp = pad_for_dicing(vol, 32, 8)
     net = UNetDeconv(1, 1)
-    net.load_state_dict(params_from_numpy(kaiming_flat(net, 3), net))
+    net.load_state_dict(params_from_numpy(init_flat(net, seed=3), net))
     net.to(dev).eval()
     pipe = DiceInferencePipeline(net, DiceGrid(vp.shape, 32, 8, 4), 1 / 65535.0, tile_batch=2,
                                  precision="bfloat16", out_dtype=np.uint16, orig_shape=vol.shape,
@@ -456,3 +456,36 @@ def test_run_matches_run_streaming_on_the_card(dev):
     assert inorm.pair_sums.launches == before + 10 * batches
     assert out.shape == vol.shape and out.std() > 0
     assert np.array_equal(out, pipe.run_streaming(vp))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_remat_step_on_the_card_is_bitwise_and_counts_its_recomputations(dev, accum):
+    """The Apollo step at 24^3 in bf16 on the kernels, with --remat and
+    without, from the same weights, crops and draws: parameters and losses
+    bitwise equal (the kernels replay the same bits when recomputed, the
+    statistics kernel's tickets included), and the launches per crop those
+    of chip_smoke.py's tables."""
+    import chip_smoke as cs
+    from neuroclear_tpu_torch import ops
+    from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import ApolloModel
+    from neuroclear_tpu_torch.options import train_options
+
+    runs = {}
+    for remat in (False, True):
+        argv = ["--dataroot", "unused", "--gan_mode", "lsgan", "--precision", "bfloat16",
+                "--randomize_projection_depth", "--projection_depth", "4"]
+        model = ApolloModel(train_options.build_parser().parse_args(
+            argv + (["--remat"] if remat else [])), dev)
+        model.init_weights(2)
+        gen = torch.Generator().manual_seed(3)
+        crops = [torch.rand((1, 24, 24, 24, 1), generator=gen).to(dev) for _ in range(accum)]
+        draws = model.draw_probes((24,) * 3, gen)
+        ops.reset_launches()
+        losses, _, _ = model.optimize_parameters_accum(lambda i: crops[i], accum, draws)
+        torch.cuda.synchronize()
+        table = cs.REMAT_STEP_LAUNCHES if remat else cs.STEP_LAUNCHES
+        assert ops.launches() == {k: accum * v for k, v in table.items()}
+        runs[remat] = (losses, [p.detach().clone() for p in model.g_params + model.d_params])
+    (la, pa), (lb, pb) = runs[False], runs[True]
+    assert all(torch.equal(la[k], lb[k]) for k in la)
+    assert all(torch.equal(p, q) for p, q in zip(pa, pb))

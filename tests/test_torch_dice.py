@@ -25,7 +25,7 @@ from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
 from neuroclear_tpu_torch.utils import tiffio
 from neuroclear_tpu_torch.utils.imageops import pad_for_dicing
-from neuroclear_tpu_torch.utils.weights import kaiming_flat
+from neuroclear_tpu_torch.utils.weights import init_flat
 
 LSB = 1
 # the whole slice with the real UNetDeconv: the generator's own f32 bound
@@ -93,7 +93,7 @@ def test_infer_main_end_to_end_matches_jax(tmp_path):
     data = tmp_path / "data"
     data.mkdir()
     np.save(data / "vol.npy", vol)
-    flat = kaiming_flat(UNetDeconv(1, 1), 5)
+    flat = init_flat(UNetDeconv(1, 1), seed=5)
     ckpt = tmp_path / "ckpt" / "exp"
     ckpt.mkdir(parents=True)
     np.savez(ckpt / "iter_7_net_G_A.npz", **flat)

@@ -19,7 +19,7 @@ from neuroclear_tpu.parallel.dice_infer import DiceInferencePipeline as JaxPipel
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
-from neuroclear_tpu_torch.utils.weights import kaiming_flat, params_from_numpy
+from neuroclear_tpu_torch.utils.weights import init_flat, params_from_numpy
 from test_torch_dice import E2E_LSB, LSB, _jax_g, _TorchG
 
 
@@ -56,7 +56,7 @@ def test_run_matches_jax_and_run_streaming(size, roi, overlap, b, batch, repetit
 def test_run_with_unet_deconv_matches_jax_and_run_streaming(repetition):
     rng = np.random.default_rng(31 + repetition)
     vol = rng.integers(0, 65535, (20, 12, 12)).astype(np.uint16)
-    flat = kaiming_flat(UNetDeconv(1, 1), 9)
+    flat = init_flat(UNetDeconv(1, 1), seed=9)
     net = UNetDeconv(1, 1)
     net.load_state_dict(params_from_numpy(flat, net))
     net.eval()

@@ -208,7 +208,7 @@ def production(tmp_path_factory):
     vol = (20000 + rng.normal(0, 3000, (40, 40, 40))).clip(0, 65535).astype(np.uint16)
     tiffio.imwrite(str(tmp / "data" / "stack.tif"), vol)
     base = ["--dataroot", str(tmp / "data"), "--name", "prod", "--checkpoints_dir",
-            str(tmp / "ck"), *PRODUCTION]
+            str(tmp / "ck"), *PRODUCTION, "--seed", "0"]
     first = train_onecube.main([*base, "--max_iters", "2", *SMALL])
     name = os.path.basename(os.path.dirname(first["checkpoints"][0]))
     resume_argv = [*base, *SMALL, "--name", name, *RESUME]
@@ -231,7 +231,7 @@ def test_production_command_runs_from_a_tiff_and_resumes(production):
         assert len(res["losses"]) == 2
         assert all(np.isfinite(v) for step in res["losses"] for v in step.values())
         assert res["model"].visuals["fake"].shape == (1, 24, 24, 24, 1)
-        assert res["model"].visuals["fake"].dtype == torch.bfloat16  # the default precision
+        assert res["model"].visuals["fake"].dtype == torch.float32  # the default precision
     assert _suffixes(first["checkpoints"]) == ["iter_2"]
     assert _suffixes(second["checkpoints"]) == ["iter_4", "iter_5"]
     assert "restored optimizer state" in production["stdout"]
@@ -319,6 +319,7 @@ def test_nan_check_saves_nan_debug_and_exits_3(tmp_path):
         train_onecube.main(["--dataroot", str(tmp_path / "nan.npy"), "--name", "nan",
                             "--checkpoints_dir", str(tmp_path / "ck"), "--nan_check",
                             "--print_freq", "1", "--max_iters", "2", "--precision", "float32",
+                            "--seed", "0",
                             "--preprocess", "randomcrop_addColorChannel_addBatchChannel",
                             "--projection_depth", "4", *SMALL])
     assert e.value.code == 3

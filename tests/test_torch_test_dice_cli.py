@@ -31,12 +31,14 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 from neuroclear_tpu.nn.core import flatten_params
 from neuroclear_tpu.nn.generators import UNetDeconv as JaxUNetDeconv
 from neuroclear_tpu.ops import pallas_wconv
 from neuroclear_tpu.utils import tiffio as jax_tiffio
 from neuroclear_tpu_torch import test_dice as port_cli
+from neuroclear_tpu_torch.options import device_of, test_options
 
 GEN_LSB = 14
 SHAPE = (12, 10, 9)  # one 24^3 tile: dice 16, overlap 0, border_cut 4
@@ -94,6 +96,14 @@ def _run_jax_cli(argv, monkeypatch):
         jax_cli.main()
     finally:
         pallas_wconv.ENABLED = enabled
+
+
+def _options_dump(path) -> dict:
+    """{option: printed value} of a ``*_opt.txt``."""
+    with open(path) as f:
+        return {m.group(1): m.group(2).rstrip() for m in
+                (re.match(r"^ *(\w+): (.*?)(\t\[default: .*\])?$", line.rstrip("\n"))
+                 for line in f) if m}
 
 
 def _read_outputs(web_dir):
@@ -181,6 +191,13 @@ def test_port_cli_matches_jax_cli(tmp_path, monkeypatch, checkpoint, in_dtype, d
         err = np.abs(g.astype(np.float64) - r.astype(np.float64)).max()
         assert err <= tol, (path, err, tol)
     _check_galleries(tmp_path / "jax" / web, res, "--skip_real" in extra)
+    # the options dump of BaseOptions.print_options, where the JAX CLI writes
+    # it: every option both CLIs take with the same value (but the folder)
+    jax_opts, port_opts = (_options_dump(tmp_path / side / os.path.dirname(web) / "test_opt.txt")
+                           for side in ("jax", "port"))
+    common = (set(jax_opts) & set(port_opts)) - {"results_dir"}
+    assert {"dataroot", "dice_size", "gpu_ids", "seed", "precision", "norm"} <= common
+    assert {k: port_opts[k] for k in common} == {k: jax_opts[k] for k in common}
     written = got[os.path.join("volumes", "output_volume_xy-view_iter-5.tif")]
     assert np.array_equal(res["fake"].astype(written.dtype), written)
     assert res["fake"].shape == SHAPE and res["fake"].std() > 0
@@ -239,6 +256,9 @@ def test_port_cli_runs_the_per_cube_switches(tmp_path, checkpoint, switch):
     (["--dataset_mode", "cube"], NotImplementedError),
     (["--image_dimension", "2"], NotImplementedError),
     (["--dice_size", "0"], ValueError),
+    (["--norm", "batch"], NotImplementedError),
+    (["--ngf", "32"], NotImplementedError),
+    (["--gpu_ids", "0,1"], NotImplementedError),
 ])
 def test_port_cli_refuses_unported_options(tmp_path, flags, error):
     """What the port does not have is refused before anything is read or
@@ -248,3 +268,20 @@ def test_port_cli_refuses_unported_options(tmp_path, flags, error):
     with pytest.raises(error, match="ROADMAP" if error is NotImplementedError else "dice_size"):
         port_cli.main(argv)
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("flags, device", [
+    (["--gpu_ids", "0"], "cuda:0"), (["--gpu_ids", "-1"], "cpu"), (["--norm", "instance"], None),
+    (["--ngf", "64"], None), (["--no_dropout"], None), (["--init_type", "normal"], None),
+    (["--seed", "1"], None), (["--num_test", "5"], None)])
+def test_port_cli_parses_the_jax_flags(tmp_path, flags, device):
+    """The flags a JAX test_dice command line carries, at the values the
+    port runs, parse; the options dump lands where the JAX CLI writes it."""
+    argv = ["--dataroot", str(tmp_path), "--results_dir", str(tmp_path / "res"), "--name", "e",
+            "--dice_size", "16", *flags]
+    if device is not None:
+        assert device_of(test_options.parse(argv)) == device
+    opt = port_cli.parse_options(argv + ["--device", "cpu"])
+    assert opt.device == torch.device("cpu")
+    dump = _options_dump(tmp_path / "res" / "e" / "test_opt.txt")
+    assert dump[flags[0][2:]] == (flags[1] if len(flags) > 1 else "True")

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from neuroclear_tpu.models import gan_common as jgc
 from neuroclear_tpu.models.axial_to_lateral_gan_apollo_model import make_apollo_step
@@ -345,3 +346,107 @@ def test_probe_draws_fit_the_crop():
             for (kind, _, axis, _), p in zip(plan, pos):
                 n = (CROP, 20, 16)[axis]
                 assert 0 <= p < (n - d.depth if kind == "proj" else n)
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """One CPU thread for torch and BLAS: with a thread per core in each of
+    the suite's six workers these steps run tens of times slower than alone
+    (a 24^3 bf16 study step: 250 s against 5 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+
+
+def _fresh_model(case, precision="float32"):
+    model = ApolloModel(_opt(precision), "cpu")
+    model.load_flats({n: flatten_params(case["params"][n]) for n in MODEL_NAMES})
+    return model
+
+
+def _second_crop():
+    return np.random.default_rng(2).random((1, CROP, CROP, CROP, 1)).astype(np.float32)
+
+
+@pytest.mark.usefixtures("one_cpu_thread")
+def test_accumulated_step_matches_jax_host_step(case):
+    """--grad_accum 2 on two crops under one step's draws: the JAX
+    ``host_step`` itself against the port's ``accumulate`` and update.  The
+    mean losses at rtol 1e-4; the summed gradients (two ``_micro`` calls
+    from zero, as ``host_step`` adds them) at this file's bars; the update:
+    the port's Adam on the JAX step's mean gradients equals ``host_step``'s
+    parameters within 2e-5 * lr (the recorded Adam deviation), so the
+    port's own step lies from JAX's by no more than its gradients explain
+    (the port's Adam on the JAX gradients against on its own) plus that."""
+    crops = np.concatenate([case["real"], _second_crop()])
+    copy = lambda t: jax.tree.map(jnp.array, t)  # noqa: E731 (host_step donates)
+    gp = {k: case["params"][k] for k in G_NAMES}
+    dp = {k: case["params"][k] for k in D_NAMES}
+    optim = jgc.make_adam(BETA1)
+    state = {"G": optim.init(gp), "D": optim.init(dp)}
+    g_new, d_new, _, jax_losses, _, _ = case["host_step"](
+        copy(gp), copy(dp), copy(state), case["rng"], jnp.asarray(crops), np.float32(LR))
+    jax_after = _jax_flat({**g_new, **d_new}, MODEL_NAMES)
+    zeros = lambda t: jax.tree.map(jnp.zeros_like, t)  # noqa: E731
+    g_sum, d_sum = zeros(gp), zeros(dp)
+    for i in range(2):
+        g_sum, d_sum, _, _, _ = case["host_step"]._micro(gp, dp, g_sum, d_sum, case["rng"],
+                                                         jnp.asarray(crops[i:i + 1]))
+
+    model = _fresh_model(case)
+    losses, real, _, _, gg, dg = model.accumulate(lambda i: torch.from_numpy(crops[i:i + 1]), 2,
+                                                  case["draws"])
+    assert torch.equal(real, torch.from_numpy(crops[1:2]))
+    for name in LOSS_NAMES:
+        assert float(losses[name]) == pytest.approx(float(jax_losses[name]), rel=1e-4), name
+    pg = {k: 2 * v for k, v in _port_flat(model, G_NAMES, gg).items()}
+    pd = {k: 2 * v for k, v in _port_flat(model, D_NAMES, dg).items()}
+    jg, jd = _jax_flat(g_sum, G_NAMES), _jax_flat(d_sum, D_NAMES)
+    _assert_grads(pd, jd, 1e-3)
+    _assert_grads({k: v for k, v in pg.items() if k.startswith("G_B.")},
+                  {k: v for k, v in jg.items() if k.startswith("G_B.")}, 1e-3)
+    _assert_grads({k: v for k, v in pg.items() if k.startswith("G_A.")},
+                  {k: v for k, v in jg.items() if k.startswith("G_A.")}, G_A_REL_L2)
+
+    model.apply_gradients(gg, dg)
+    port_after = {**_port_flat(model, G_NAMES, list(model.g_params)),
+                  **_port_flat(model, D_NAMES, list(model.d_params))}
+    on_jax = _fresh_model(case)
+    grads = {}
+    for names, acc in ((G_NAMES, g_sum), (D_NAMES, d_sum)):
+        for n in names:
+            grads[n] = params_from_numpy({k: np.asarray(v) / 2 for k, v in
+                                          flatten_params(acc[n]).items()}, on_jax.nets[n])
+    on_jax.apply_gradients(*[[grads[n][pn] for n in names
+                              for pn, _ in on_jax.nets[n].named_parameters()]
+                             for names in (G_NAMES, D_NAMES)])
+    on_jax_after = {**_port_flat(on_jax, G_NAMES, list(on_jax.g_params)),
+                    **_port_flat(on_jax, D_NAMES, list(on_jax.d_params))}
+    assert set(port_after) == set(jax_after)
+    for k, ref in jax_after.items():
+        np.testing.assert_allclose(on_jax_after[k], ref, rtol=1e-6, atol=2e-5 * LR, err_msg=k)
+        explained = np.abs(port_after[k] - on_jax_after[k])
+        assert np.all(np.abs(port_after[k] - ref)
+                      <= explained + 2e-5 * LR + 1e-6 * np.abs(ref)), k
+
+
+@pytest.mark.usefixtures("one_cpu_thread")
+def test_accumulating_one_crop_twice_is_the_single_crop_step(case):
+    """Accum-2 over one crop given twice is bitwise the accum-1 step: the
+    accumulators hold 0 + g + g = 2g and (2g) / 2 = g exactly in f32, and the
+    mean of two equal losses is the loss."""
+    real = torch.from_numpy(case["real"])
+    one, two = _fresh_model(case), _fresh_model(case)
+    l1, _, _ = one.optimize_parameters(real, case["draws"])
+    l2, _, _ = two.optimize_parameters_accum(lambda i: real, 2, case["draws"])
+    for name in LOSS_NAMES:
+        assert torch.equal(l1[name], l2[name]), name
+    for p, q in zip(list(one.g_params) + list(one.d_params),
+                    list(two.g_params) + list(two.d_params)):
+        assert torch.equal(p, q)
+    for oa, ob in ((one.optim_g, two.optim_g), (one.optim_d, two.optim_d)):
+        for p, q in zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"]):
+            assert torch.equal(oa.state[p]["exp_avg"], ob.state[q]["exp_avg"])
+            assert torch.equal(oa.state[p]["exp_avg_sq"], ob.state[q]["exp_avg_sq"])

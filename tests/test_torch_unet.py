@@ -14,7 +14,7 @@ from neuroclear_tpu.nn.core import unflatten_params
 from neuroclear_tpu.nn.generators import UNetDeconv as JaxUNetDeconv
 from neuroclear_tpu_torch.nn.factory import define_G
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
-from neuroclear_tpu_torch.utils.weights import (count_params, kaiming_flat, load_npz,
+from neuroclear_tpu_torch.utils.weights import (count_params, init_flat, load_npz,
                                                 params_from_numpy)
 
 # ten instance norms deep in f32: each conv's sum order differs from XLA's,
@@ -25,7 +25,7 @@ RTOL = 1e-4
 def _flat_with_biases(net, seed):
     """Kaiming weights as the JAX package draws them, plus random biases so
     every bias takes part in the comparison."""
-    flat = kaiming_flat(net, seed)
+    flat = init_flat(net, seed=seed)
     rng = np.random.default_rng(seed + 1)
     for k in flat:
         if k.endswith(".b"):
