@@ -87,15 +87,37 @@ Phases, each printed with its name, seconds and result:
      one's peak device memory (remat's lower); one accum-2 step three ways
      judged as the train phase's, printed beside its random-weight errors,
      and its accumulation against the mean of the per-crop gradients;
-  11. profile (only with --profile): a warm run of the slice's tile pipeline
+  11. athena: the JAX study's Athena command (``--model
+     axial_to_lateral_gan_athena --conversion_plane yz xy``, 128^3 crops,
+     ``--remat``, bf16) through ``train_onecube.main`` on a synthetic 256^3
+     TIFF from the eight nets the study trained (``study_state/athena148``)
+     with a fresh Adam: four steps, launches exact per step (every
+     discriminator norm over 128 slices), the step median; one step with
+     and without remat, bitwise equal, with each peak; the 15 losses against
+     the JAX step's formulas restated here; one step three ways judged with
+     ``ATHENA_DIRECT``;
+  12. dryops: ``--model axial_to_lateral_gan_dryops`` at 108^3 from random
+     Kaiming weights: four steps, launches exact, the step median, the
+     three-way step, and two crops' accumulation under one set of draws;
+  13. epoch: the epoch trainer (``neuroclear_tpu_torch.train.main``) with the
+     cube dataset over three synthetic 160^3 TIFFs, the production flags in
+     bf16, one epoch with the host chain on a prefetching thread: launches
+     exact, the host chain's seconds per item beside the step times, the
+     epoch's checkpoints, the device's idle share over the epoch loop (the
+     epoch again under torch.profiler, its ``epoch_loop`` range), and the
+     host chain's rotation against scipy float64;
+  14. trained G_A: the slice's tile pipeline on the JAX study's trained
+     Apollo G_A, its launches, its bf16 output against the plain versions
+     in f32 and in bf16 within ``TRAINED_KP_*``;
+  15. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv), three warm cubes of the per-cube
-     loop (with its copies), a warm training step and a warm study step
-     under torch.profiler, device time by kernel and the device's idle
-     share, and warm steps with and without a sync after each.
+     loop (with its copies), a warm training step, a warm study step and a
+     warm Athena step under torch.profiler, device time by kernel and the
+     device's idle share, and warm steps with and without a sync after each.
 Then a ``{"kernels": [...]}`` line (the forward norm's two rows also carry
 the 108^3 step's sums as ``step_*`` and one f32 cube's as ``legacy_*``), the nvidia-smi name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits nonzero before that line.  The whole run has a 600 s budget.
+exits nonzero before that line.  The whole run has a 900 s budget.
 """
 
 from __future__ import annotations
@@ -117,12 +139,20 @@ import torch
 import torch.nn.functional as F
 
 import neuroclear_tpu_torch.ops as kernel_ops
-from neuroclear_tpu_torch import test_dice, train_onecube
+from neuroclear_tpu_torch import test_dice, train, train_onecube
+from neuroclear_tpu_torch.data import find_dataset_using_name, warp
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
+from neuroclear_tpu_torch.models import create_model
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
     D_NAMES, G_NAMES, LOSS_NAMES, MODEL_NAMES, ApolloModel)
+from neuroclear_tpu_torch.models.axial_to_lateral_gan_athena_model import (
+    D_NAMES as ATHENA_D_NAMES, LOSS_NAMES as ATHENA_LOSS_NAMES,
+    MODEL_NAMES as ATHENA_MODEL_NAMES)
+from neuroclear_tpu_torch.models.axial_to_lateral_gan_dryops_model import (
+    D_NAMES as DRYOPS_D_NAMES, LOSS_NAMES as DRYOPS_LOSS_NAMES)
 from neuroclear_tpu_torch.nn.factory import define_G
+from neuroclear_tpu_torch.nn.losses import gan_loss, l1_loss
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.ops import build, conv3x3, inorm, rotation, wconv
 from neuroclear_tpu_torch.ops.augment import crop_draws
@@ -133,7 +163,7 @@ from neuroclear_tpu_torch.utils import png, tiffio
 from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import init_flat, load_npz, params_from_numpy
 
-BUDGET_S = 600
+BUDGET_S = 900
 WGMMA_SOURCES = ("conv3x3", "wconv_dw")  # the kernels built on wgmma and TMA
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -255,6 +285,20 @@ STEP_LAUNCHES = {"wconv3x3x3": 3, "wconv_dx": 3, "wconv_dw": 3, "pair_sums": 64,
 # under one checkpoint, runs feat1 twice: 6.  The backward is unchanged.
 REMAT_STEP_LAUNCHES = {**STEP_LAUNCHES, "wconv3x3x3": 6, "pair_sums": 79,
                        "affine_map_act": 79}
+# Athena's step per crop: the same nets' generators, and 18 discriminator
+# applications as Apollo's (six all-slices probes in the G loss, twelve in
+# the D loss), each a batch of every slice of the crop: so the same launches
+# per crop, each norm launch over N = crop slices instead of 1
+ATHENA_STEP_LAUNCHES = dict(STEP_LAUNCHES)
+ATHENA_REMAT_STEP_LAUNCHES = dict(REMAT_STEP_LAUNCHES)
+# Dryops: G_A alone (its two W-pair convs) and nine discriminator
+# applications (three in the G loss, six in the D loss): 10 + 27 norms, each
+# differentiated; with remat G_A's units run 3n - 1 times (25 norms, each
+# W-pair conv twice)
+DRYOPS_STEP_LAUNCHES = {"wconv3x3x3": 2, "wconv_dx": 2, "wconv_dw": 2, "pair_sums": 37,
+                        "affine_map_act": 37, "pair_sums_gy": 37, "bwd_map": 37, "conv3x3": 0}
+DRYOPS_REMAT_STEP_LAUNCHES = {**DRYOPS_STEP_LAUNCHES, "wconv3x3x3": 4, "pair_sums": 52,
+                              "affine_map_act": 52}
 # The production command without --precision runs in f32: the W-pair conv's
 # gate is bf16-only, so cuDNN runs every conv and the norm kernels run in f32
 F32_STEP_LAUNCHES = {**STEP_LAUNCHES, "wconv3x3x3": 0, "wconv_dx": 0, "wconv_dw": 0}
@@ -325,6 +369,68 @@ ACCUM_REL_L2 = 1e-6
 # than the plain path, 0.086 against 0.093 pooled), at two to three times
 # those, below the faults' 0.5 and more (chip_smoke_faults.py runs them here)
 STUDY_DIRECT = {"G_A": 0.15, "G_B": 0.1, "D": 0.15}
+
+# Athena: the JAX study's Athena command (scripts/run_study_queue.sh:74-80,
+# MODEL_FLAGS "--model axial_to_lateral_gan_athena --conversion_plane yz xy"
+# and CROP 128, with run_quality_study.sh:84-93's TRAIN_FLAGS and their
+# default SAVE_FREQ, PRINT_FREQ and WATCHDOG), resumed from the eight nets the
+# study trained (iteration 501 of athena148) with a fresh Adam (its 186 MB
+# optimizer file is left out), on a synthetic 256^3 uint16 TIFF.  Cut: the
+# volume (256^3, not the study's 700^3; it holds the 45-degree rotated 128^2
+# crop) and the iterations.  Every discriminator probe is a batch of the
+# crop's 128 slices.
+ATHENA_CROP, ATHENA_VOLUME, ATHENA_ITERS = 128, 256, 4
+ATHENA_NAME, ATHENA_LOAD_ITER = "athena148", 501
+ATHENA_STATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "study_state",
+                            "athena148")
+ATHENA_ARGS = [
+    "--dataset_mode", "singlevolume",
+    "--preprocess", "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel",
+    "--model", "axial_to_lateral_gan_athena", "--conversion_plane", "yz", "xy",
+    "--netG", "unet_deconv", "--netG_B", "deep_linear_gen", "--netD", "basic",
+    "--gan_mode", "lsgan", "--init_type", "kaiming", "--norm", "instance",
+    "--batch_size", "1", "--lambda_A", "5",
+    "--crop_size", str(ATHENA_CROP), str(ATHENA_CROP), str(ATHENA_CROP),
+    "--lr_policy", "constant", "--precision", "bfloat16", "--remat", "--save_by_iter",
+    "--save_latest_freq", "50", "--print_freq", "25", "--display_freq", "1000000",
+    "--seed", "0", "--watchdog_secs", "300"]
+# The trained Athena step judged by judge_step's rule, with per-tensor limits
+# against the plain bf16 step set from this phase's first reading on an H100
+# at seed 0 (largest G_A 0.0274, G_B 0.0177, D 0.00285: each discriminator
+# gradient averages 128 slices), at about three times those
+ATHENA_DIRECT = {"G_A": 0.08, "G_B": 0.05, "D": 0.01}
+# The model's losses restated from make_athena_step's formulas (the smoke's
+# own slicing and sums) against the model's: the same kernels on the same
+# tensors, so equal but for the order of a few f32 adds
+ATHENA_TERMS_REL = 1e-5
+# Dryops: Apollo's production flags for the model that has no G_B (no
+# --netG_B), 108^3 crops, random Kaiming weights, --randomize_projection_depth,
+# bf16, on the train phase's 160^3 volume; one warm-up and three timed steps.
+DRYOPS_ITERS = 4
+DRYOPS_ARGS = [a for a in TRAIN_ARGS if a not in ("--netG_B", "deep_linear_gen", "--add_date")]
+DRYOPS_ARGS[DRYOPS_ARGS.index("axial_to_lateral_gan_apollo")] = "axial_to_lateral_gan_dryops"
+# Epoch: the epoch trainer (python -m neuroclear_tpu_torch.train) with the
+# cube dataset over three synthetic 160^3 TIFFs, Apollo's production flags
+# with --precision bfloat16, one epoch, the host chain on a prefetching thread
+EPOCH_VOLUMES = 3
+EPOCH_ARGS = [*[a for a in TRAIN_ARGS if a != "--add_date"], "--dataset_mode", "cube",
+              "--n_epochs", "1", "--n_epochs_decay", "0", "--save_epoch_freq", "1",
+              "--num_threads", "2", "--print_freq", "1"]
+# The host chain's rotation (data/warp.py, cv2's warp without cv2) against
+# scipy's float64 bilinear map of the same geometry, on uint16 slices: the
+# twin rounds each voxel once, from float32 coordinates (a few 1e-5 px off
+# float64); a 1/32-pixel shift moves voxels by the field's gradient over 32
+# (here ~100 LSB)
+HOST_ROT_ANGLES = (23, 137, 251)
+HOST_ROT_MAX_LSB, HOST_ROT_MEAN_LSB = 1.0, 0.3
+# Trained G_A through the tile pipeline (the JAX study's Apollo G_A,
+# iteration 11000), bf16 with the kernels, on the slice's volume: bounds set
+# from this phase's first reading on an H100 at seed 0 (kernels against the
+# plain bf16 path max 512, mean 5.86 LSB; both ~25.7 LSB mean from f32), in
+# place of the random-weight SLICE_KP_* (2048, 128): two bf16 steps more for
+# the worst voxel, twice the mean
+TRAINED_G_A = os.path.join(STUDY_STATE, f"iter_{STUDY_LOAD_ITER}_net_G_A.npz")
+TRAINED_KP_MAX_LSB, TRAINED_KP_MEAN_LSB = 4 * 256, 12.0
 
 T_START = time.monotonic()
 
@@ -1012,7 +1118,7 @@ def per_cube_plain(argv: list, flat: dict, dev) -> np.ndarray:
     generator on the plain versions, the same weights; no kernel may
     launch."""
     opt = test_dice.parse_options(argv)
-    dataset = test_dice.DiceImageDataSet(opt)
+    dataset = find_dataset_using_name(opt.dataset_mode)(opt)
     model = test_dice.TestModel(opt, dev)
     model.netG = define_G(1, 1, 64, "unet_deconv", plain=True)
     model.netG.load_state_dict(params_from_numpy(flat, model.netG))
@@ -1141,7 +1247,7 @@ def run_legacy(seed: int, dev, tmp: str) -> dict:
 
 def _grads_by_name(model, g_grads, d_grads) -> dict:
     """{NET.param: f32 gradient} in the order of the model's parameters."""
-    names = [f"{n}.{pn}" for n in G_NAMES + D_NAMES for pn, _ in model.nets[n].named_parameters()]
+    names = [f"{n}.{pn}" for n in model.model_names for pn, _ in model.nets[n].named_parameters()]
     return {k: g.detach().float() for k, g in zip(names, list(g_grads) + list(d_grads))}
 
 
@@ -1155,48 +1261,70 @@ def _rel_l2(a: dict, b: dict, keys) -> float:
     return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in keys))
 
 
-def step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
-    """One step from identical weights, crop and draws: {label: (losses,
-    gradients)} for the kernels in bf16 and the plain versions in bf16 and
-    in f32."""
-    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *PRODUCTION_ARGS])
-    dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
-    gen = torch.Generator().manual_seed(seed + 1)
-    real = dataset.sample(gen)
-    draws, runs = None, {}
+def model_three_ways(make, inputs, step=None, on_kernels=None) -> dict:
+    """One step's losses and gradients three ways, from identical weights,
+    crop and draws: {label: (losses, gradients)} for the kernels in bf16
+    and the plain versions in bf16 and in f32.  ``make(plain, precision)``
+    builds the model; ``inputs(model)`` -> its arguments, taken once;
+    ``step(model, *inputs)`` -> (losses, ..., g_grads, d_grads)
+    (``model.gradients`` by default); ``on_kernels(model, *inputs)`` runs on
+    the kernel way's model before it is dropped."""
+    runs, taken = {}, None
     for label, plain, precision in (("kernels bf16", False, "bfloat16"),
                                     ("plain bf16", True, "bfloat16"),
                                     ("plain f32", True, "float32")):
-        opt.precision = precision
-        model = ApolloModel(opt, dev, plain=plain)
-        model.init_weights(seed)
-        if draws is None:
-            draws = model.draw_probes((CROP,) * 3, gen)
+        model = make(plain, precision)
+        if taken is None:
+            taken = inputs(model)
         before = kernel_ops.launches()
-        losses, _, _, g_grads, d_grads = model.gradients(real, draws)
+        losses, *_, g_grads, d_grads = (step or type(model).gradients)(model, *taken)
         torch.cuda.synchronize()
         if plain and kernel_ops.launches() != before:
             raise AssertionError(f"the {label} step launched a kernel")
         runs[label] = ({k: float(v) for k, v in losses.items()},
                        _grads_by_name(model, g_grads, d_grads))
-        del model, g_grads, d_grads
+        del g_grads, d_grads
+        if not plain and on_kernels:
+            on_kernels(model, *taken)
+        del model
         torch.cuda.empty_cache()
     return runs
 
 
-def judge_step(runs: dict, direct_limits: dict = STEP_DIRECT) -> tuple[list, dict]:
+def step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
+    """One production step from identical weights, crop and draws, three
+    ways (``model_three_ways``)."""
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *PRODUCTION_ARGS])
+    dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    real = dataset.sample(gen)
+
+    def make(plain, precision):
+        opt.precision = precision
+        model = ApolloModel(opt, dev, plain=plain)
+        model.init_weights(seed)
+        return model
+
+    return model_three_ways(make, lambda model: (real, model.draw_probes((CROP,) * 3, gen)))
+
+
+def judge_step(runs: dict, direct_limits: dict = STEP_DIRECT, loss_names=LOSS_NAMES,
+               d_names=D_NAMES) -> tuple[list, dict]:
     """(failures, stats) of the kernel step against the plain steps, each
     gradient tensor against the plain bf16 step's within ``direct_limits``
-    (per net group)."""
+    (per net group: G_A, G_B where the model has it, and the
+    discriminators ``d_names``)."""
     (lk, gk), (lp, gp), (lf, gf) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
     bad, stats = [], {"pooled": {}, "direct": {}}
-    for name in LOSS_NAMES:
+    for name in loss_names:
         ek, ep = abs(lk[name] - lf[name]), abs(lp[name] - lf[name])
         if not ek <= STEP_LOSS_RATIO * ep + STEP_LOSS_REL * abs(lf[name]):  # NaN fails
             bad.append(f"loss {name}: {ek:.4g} vs plain {ep:.4g}")
     keys = [k for k in gf if not _is_pre_norm_bias(k)]
-    for group, nets in (("G_A", ["G_A"]), ("G_B", ["G_B"]), ("D", D_NAMES)):
+    for group, nets in (("G_A", ["G_A"]), ("G_B", ["G_B"]), ("D", d_names)):
         ks = [k for k in keys if k.split(".")[0] in nets]
+        if not ks:
+            continue
         ek, ep = _rel_l2(gk, gf, ks), _rel_l2(gp, gf, ks)
         stats["pooled"][group] = (ek, ep)
         if not ek <= STEP_GRAD_RATIO * ep + STEP_GRAD_ABS:
@@ -1215,23 +1343,33 @@ def judge_step(runs: dict, direct_limits: dict = STEP_DIRECT) -> tuple[list, dic
     return bad, stats
 
 
-def check_step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
-    """The kernel step's losses and gradients against the f32 plain step, no
-    worse than the plain bf16 step's, and against the plain bf16 step."""
-    runs = step_three_ways(seed, vol, dev)
-    bad, stats = judge_step(runs)
+def report_three_ways(label: str, runs: dict, direct: dict, loss_names, d_names,
+                      random_pooled=None) -> dict:
+    """``judge_step`` on ``runs``, logged; raises on a failure.  Returns the
+    pooled errors."""
+    bad, stats = judge_step(runs, direct, loss_names, d_names)
+    log(f"  {label}, relative error against the plain f32 step (kernels bf16 / plain bf16)"
+        + (", beside the train phase's at random weights" if random_pooled else "") + ": "
+        + "; ".join(f"{g} {ek:.4g} / {ep:.4g}"
+                    + (f" (random {random_pooled[g][0]:.4g} / {random_pooled[g][1]:.4g})"
+                       if random_pooled and g in random_pooled else "")
+                    for g, (ek, ep) in stats["pooled"].items()))
     (lk, _), (lp, _), (lf, _) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
-    log("  step at 108^3, relative error against the plain f32 step (kernels bf16 / plain "
-        "bf16): " + "; ".join(f"{g} gradients {ek:.4g} / {ep:.4g}"
-                              for g, (ek, ep) in stats["pooled"].items()))
     log("  losses (f32 | kernels bf16 | plain bf16): " + "; ".join(
-        f"{n} {lf[n]:.5g} | {lk[n]:.5g} | {lp[n]:.5g}" for n in LOSS_NAMES))
+        f"{n} {lf[n]:.5g} | {lk[n]:.5g} | {lp[n]:.5g}" for n in loss_names))
     log("  kernel step against the plain bf16 step, largest relative L2 per tensor: " + "; ".join(
         f"{g} " + ", ".join(f"{d:.4g} ({k})" for d, k in top)
         for g, top in stats["direct"].items()))
     if bad:
-        raise AssertionError("kernel step off the plain steps: " + "; ".join(bad))
+        raise AssertionError(f"{label}: kernel step off the plain steps: " + "; ".join(bad))
     return stats["pooled"]
+
+
+def check_step_three_ways(seed: int, vol: np.ndarray, dev) -> dict:
+    """The kernel step's losses and gradients against the f32 plain step, no
+    worse than the plain bf16 step's, and against the plain bf16 step."""
+    return report_three_ways(f"step at {CROP}^3", step_three_ways(seed, vol, dev), STEP_DIRECT,
+                             LOSS_NAMES, D_NAMES)
 
 
 def rotated_reference(vol: np.ndarray, angle: float, offsets, flips) -> np.ndarray:
@@ -1375,7 +1513,7 @@ def _model_state_diffs(a, b) -> list:
     """Where two models' parameters, Adam state or schedule positions
     differ (bitwise)."""
     bad = []
-    for name in G_NAMES + D_NAMES:
+    for name in a.model_names:
         for (pn, p), q in zip(a.nets[name].named_parameters(), b.nets[name].parameters()):
             if not torch.equal(p, q):
                 bad.append(f"{name}.{pn}")
@@ -1488,34 +1626,14 @@ def study_inputs(vol: np.ndarray, dev, seed: int, n: int, model: ApolloModel):
 
 def check_remat(flats: dict, vol: np.ndarray, dev, seed: int) -> dict:
     """One accum-8 step from the trained nets, the same crops and draws, with
-    --remat and without: the parameters, Adam state and losses required
-    bitwise equal, and the peak device memory of each step (both models
-    resident throughout), the remat one required lower."""
-    models = {remat: study_model(flats, dev, remat=remat) for remat in (True, False)}
-    crop, draws = study_inputs(vol, dev, seed + 6, STUDY_ACCUM, models[True])
-    losses, peaks = {}, {}
-    for remat, model in models.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        out, _, _ = model.optimize_parameters_accum(crop, STUDY_ACCUM, draws)
-        torch.cuda.synchronize()
-        peaks[remat] = (torch.cuda.max_memory_allocated(dev), base)
-        losses[remat] = {k: v.clone() for k, v in out.items()}
-    bad = _model_state_diffs(models[True], models[False])
-    bad += [f"loss {k}" for k in LOSS_NAMES if not torch.equal(losses[True][k], losses[False][k])]
-    gib = {r: (p / 2 ** 30, b / 2 ** 30) for r, (p, b) in peaks.items()}
-    log(f"  accum-{STUDY_ACCUM} step at {STUDY_CROP}^3 from the trained nets: peak device "
-        f"memory {gib[True][0]:.3f} GiB with --remat, {gib[False][0]:.3f} GiB without (both "
-        f"models resident: {gib[True][1]:.3f} GiB before the step); remat against no remat: "
-        + ("parameters, Adam state and losses bitwise equal" if not bad else f"DIFFER: {bad[:6]}"))
-    if bad:
-        raise AssertionError(f"the remat step differs from the step without: {bad[:6]}")
-    if not peaks[True][0] < peaks[False][0]:
-        raise AssertionError(f"remat peak {gib[True][0]:.3f} GiB not below {gib[False][0]:.3f}")
-    del models
-    torch.cuda.empty_cache()
-    return {"peak_gib": gib[True][0], "peak_gib_no_remat": gib[False][0], "base_gib": gib[True][1]}
+    --remat and without (``check_peaks``)."""
+    crop, draws = study_inputs(vol, dev, seed + 6, STUDY_ACCUM, study_model(flats, dev))
+    log(f"  accum-{STUDY_ACCUM} step at {STUDY_CROP}^3 from the trained nets:")
+    expected = {remat: {k: STUDY_ACCUM * v for k, v in table.items()} for remat, table in
+                ((True, REMAT_STEP_LAUNCHES), (False, STEP_LAUNCHES))}
+    return check_peaks(lambda remat: study_model(flats, dev, remat=remat),
+                       lambda model: model.optimize_parameters_accum(crop, STUDY_ACCUM, draws),
+                       dev, expected)
 
 
 def check_accumulation(model: ApolloModel, crop, n: int, draws) -> float:
@@ -1523,19 +1641,19 @@ def check_accumulation(model: ApolloModel, crop, n: int, draws) -> float:
     calls, added and divided here: relative L2 over every gradient tensor
     at most ACCUM_REL_L2, and the losses the mean of the per-crop losses.
     Returns the relative L2."""
-    losses, _, _, _, g_acc, d_acc = model.accumulate(crop, n, draws)
+    losses, *_, g_acc, d_acc = model.accumulate(crop, n, draws)
     acc = _grads_by_name(model, g_acc, d_acc)
     del g_acc, d_acc
     total, per_loss = None, []
     for i in range(n):
-        crop_losses, _, _, gg, dg = model.gradients(crop(i), draws)
+        crop_losses, *_, gg, dg = model.gradients(crop(i), draws)
         grads = _grads_by_name(model, gg, dg)
         total = grads if total is None else {k: total[k] + grads[k] for k in total}
         per_loss.append(crop_losses)
         del gg, dg, grads
     mean = {k: v / n for k, v in total.items()}
     err = _rel_l2(acc, mean, list(mean))
-    bad = [name for name in LOSS_NAMES if not math.isclose(
+    bad = [name for name in model.loss_names if not math.isclose(
         float(losses[name]), sum(float(l[name]) for l in per_loss) / n, rel_tol=1e-6)]
     log(f"  accumulated gradients of {n} crops against the mean of their own gradients: "
         f"relative L2 {err:.3g} (limit {ACCUM_REL_L2}); losses "
@@ -1547,29 +1665,16 @@ def check_accumulation(model: ApolloModel, crop, n: int, draws) -> float:
 
 def accum_step_three_ways(flats: dict, vol: np.ndarray, dev, seed: int) -> dict:
     """One accum-2 step at 148^3 from the trained nets, the same crops and
-    draws, three ways ({label: (losses, gradients)} as ``step_three_ways``);
-    the kernel way's accumulation checked by ``check_accumulation``."""
-    runs, err = {}, None
-    crop = draws = None
-    for label, plain, precision in (("kernels bf16", False, "bfloat16"),
-                                    ("plain bf16", True, "bfloat16"),
-                                    ("plain f32", True, "float32")):
-        model = study_model(flats, dev, plain=plain, precision=precision)
-        if crop is None:
-            crop, draws = study_inputs(vol, dev, seed + 7, 2, model)
-        before = kernel_ops.launches()
-        losses, _, _, _, g_acc, d_acc = model.accumulate(crop, 2, draws)
-        torch.cuda.synchronize()
-        if plain and kernel_ops.launches() != before:
-            raise AssertionError(f"the {label} step launched a kernel")
-        runs[label] = ({k: float(v) for k, v in losses.items()},
-                       _grads_by_name(model, g_acc, d_acc))
-        del g_acc, d_acc
-        if not plain:
-            err = check_accumulation(model, crop, 2, draws)
-        del model
-        torch.cuda.empty_cache()
-    return runs, err
+    draws, three ways (``model_three_ways``); the kernel way's accumulation
+    checked by ``check_accumulation``.  Returns (runs, its error)."""
+    err = []
+    runs = model_three_ways(
+        lambda plain, precision: study_model(flats, dev, plain=plain, precision=precision),
+        lambda model: study_inputs(vol, dev, seed + 7, 2, model),
+        step=lambda model, crop, draws: model.accumulate(crop, 2, draws),
+        on_kernels=lambda model, crop, draws: err.append(check_accumulation(model, crop, 2,
+                                                                              draws)))
+    return runs, err[0]
 
 
 def run_study(seed: int, dev, tmp: str, random_pooled: dict) -> dict:
@@ -1613,22 +1718,410 @@ def run_study(seed: int, dev, tmp: str, random_pooled: dict) -> dict:
     flats = study_flats()
     mem = check_remat(flats, vol, dev, seed)
     runs, acc_err = accum_step_three_ways(flats, vol, dev, seed)
-    bad, stats = judge_step(runs, STUDY_DIRECT)
-    log(f"  accum-2 step at {STUDY_CROP}^3 from the trained nets, relative error against the "
-        "plain f32 step (kernels bf16 / plain bf16), beside the train phase's at random "
-        "weights: " + "; ".join(
-            f"{g} {ek:.4g} / {ep:.4g} (random {random_pooled[g][0]:.4g} / "
-            f"{random_pooled[g][1]:.4g})" for g, (ek, ep) in stats["pooled"].items()))
-    (lk, _), (lp, _), (lf, _) = runs["kernels bf16"], runs["plain bf16"], runs["plain f32"]
-    log("  losses (f32 | kernels bf16 | plain bf16): " + "; ".join(
-        f"{n} {lf[n]:.5g} | {lk[n]:.5g} | {lp[n]:.5g}" for n in LOSS_NAMES))
-    log("  kernel step against the plain bf16 step, largest relative L2 per tensor: " + "; ".join(
-        f"{g} " + ", ".join(f"{d:.4g} ({k})" for d, k in top)
-        for g, top in stats["direct"].items()))
-    if bad:
-        raise AssertionError("trained-weight kernel step off the plain steps: " + "; ".join(bad))
+    pooled = report_three_ways(f"accum-2 step at {STUDY_CROP}^3 from the trained nets", runs,
+                               STUDY_DIRECT, LOSS_NAMES, D_NAMES, random_pooled)
     return {"launches": launches, "per_step": per_step, "step_ms": step_ms, **mem,
-            "pooled": stats["pooled"], "accum_err": acc_err}
+            "pooled": pooled, "accum_err": acc_err}
+
+
+def athena_model(flats: dict, dev, plain: bool = False, **overrides):
+    """The study's Athena model (its flags, ``overrides`` applied) holding
+    ``flats`` ({NAME: JAX flat dict}), with a fresh Adam."""
+    argv = ["--dataroot", "unused", *ATHENA_ARGS]
+    opt = train_options.build_parser(argv).parse_args(argv)
+    for k, v in overrides.items():
+        setattr(opt, k, v)
+    model = create_model(opt, dev, plain=plain)
+    model.load_flats(flats)
+    return model
+
+
+def athena_flats() -> dict:
+    return {n: load_npz(os.path.join(ATHENA_STATE, f"iter_{ATHENA_LOAD_ITER}_net_{n}.npz"))
+            for n in ATHENA_MODEL_NAMES}
+
+
+def _each_slice(vol: torch.Tensor, axis: int) -> torch.Tensor:
+    """Every slice along ``axis`` as the batch, slice by slice (the smoke's
+    own restatement of ``all_slices``)."""
+    n = vol.shape[axis + 1]
+    return torch.stack([vol.select(axis + 1, i) for i in range(n)], 1).flatten(0, 1)
+
+
+def check_athena_terms(model, real: torch.Tensor) -> float:
+    """The model's 15 losses against make_athena_step's formulas restated
+    here (the discriminators on every slice of the axes the JAX step names,
+    ``_each_slice``), on the same nets and crop; returns the largest
+    relative difference (limit ATHENA_TERMS_REL)."""
+    src, tgt = ATHENA_ARGS[ATHENA_ARGS.index("--conversion_plane") + 1:][:2]
+    plane = {"xy": 0, "xz": 1, "yz": 2}  # the slice axis of each plane, restated
+    t, s_ = plane[tgt], plane[src]
+    r = 3 - t - s_
+    with torch.no_grad():
+        real = real.to(model.device, model.cfg.compute_dtype)
+        (_, g_terms, fake, rec) = model.g_loss(real)
+        _, d_terms = model.d_loss(real, fake, rec)
+        terms = {**g_terms, **d_terms}
+        nets = model.nets
+
+        def g(vol, axis, d):
+            return gan_loss(nets[d](_each_slice(vol, axis)), True, "lsgan")
+
+        def dp(vr, ar, vf, af, d):
+            return (gan_loss(nets[d](_each_slice(vr, ar)), True, "lsgan")
+                    + gan_loss(nets[d](_each_slice(vf, af)), False, "lsgan")) * 0.5
+
+        third = 1 / 3
+        want = {"G_A_xy": g(fake, t, "D_A_xy") * third, "G_A_yz": g(fake, s_, "D_A_yz") * third,
+                "G_A_xz": g(fake, r, "D_A_xz") * third, "G_B_xy": g(rec, t, "D_B_xy") * third,
+                "G_B_yz": g(rec, s_, "D_B_yz") * third, "G_B_xz": g(rec, r, "D_B_xz") * third,
+                "cycle_A": l1_loss(rec, real) * 5.0,
+                "D_A_xy": dp(real, t, fake, t, "D_A_xy"), "D_A_yz": dp(real, t, fake, s_, "D_A_yz"),
+                "D_A_xz": dp(real, t, fake, r, "D_A_xz"), "D_B_xy": dp(real, t, rec, t, "D_B_xy"),
+                "D_B_yz": dp(real, s_, rec, s_, "D_B_yz"),
+                "D_B_xz": dp(real, r, rec, r, "D_B_xz")}
+        want["G_A"] = want["G_A_xy"] + want["G_A_yz"] + want["G_A_xz"]
+        want["G_B"] = want["G_B_xy"] + want["G_B_yz"] + want["G_B_xz"]
+    errs = {k: abs(float(terms[k]) - float(v)) / max(abs(float(v)), 1e-12)
+            for k, v in want.items()}
+    worst = max(errs.values())
+    log(f"  Athena's {len(errs)} losses against make_athena_step's formulas restated (every "
+        f"slice of the named axes): largest relative difference {worst:.3g} (limit "
+        f"{ATHENA_TERMS_REL})")
+    bad = {k: e for k, e in errs.items() if not e <= ATHENA_TERMS_REL}
+    if bad or set(want) != set(model.loss_names):
+        raise AssertionError(f"Athena's losses off the restated step: {bad}")
+    return worst
+
+
+def athena_inputs(vol: np.ndarray, dev, seed: int):
+    """A function model -> (real, None): one 128^3 crop of ``vol`` drawn as
+    the trainer draws it (Athena draws no probe)."""
+    preprocess = ATHENA_ARGS[ATHENA_ARGS.index("--preprocess") + 1]
+    dataset = SingleVolumeDataset(vol, (ATHENA_CROP,) * 3, preprocess, dev)
+    real = dataset.sample(torch.Generator().manual_seed(seed))
+    return lambda model: (real, None)
+
+
+def check_peaks(make, step, dev, expected: dict) -> dict:
+    """One step (``step(model)``) of two models from the same weights
+    (``make(remat)``), with --remat and without, on the same crops and
+    draws: the launches of each exactly ``expected[remat]``, parameters,
+    Adam state and losses required bitwise equal, and each step's peak
+    device memory (both models resident), the remat one required lower."""
+    models = {remat: make(remat) for remat in (True, False)}
+    losses, peaks, bad = {}, {}, []
+    for remat, model in models.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kernel_ops.reset_launches()
+        out, *_ = step(model)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30, base / 2 ** 30)
+        losses[remat] = {k: v.clone() for k, v in out.items()}
+        if kernel_ops.launches() != expected[remat]:
+            bad.append(f"launches {'with' if remat else 'without'} remat "
+                       f"{kernel_ops.launches()} != {expected[remat]}")
+    bad += _model_state_diffs(models[True], models[False])
+    bad += [f"loss {k}" for k in losses[True] if not torch.equal(losses[True][k],
+                                                                 losses[False][k])]
+    log(f"  peak device memory {peaks[True][0]:.3f} GiB with --remat, {peaks[False][0]:.3f} GiB "
+        f"without (both models resident: {peaks[True][1]:.3f} GiB before the step); remat "
+        "against no remat: "
+        + ("launches as expected with and without, parameters, Adam state and losses "
+           "bitwise equal" if not bad else f"DIFFER: {bad[:6]}"))
+    if bad:
+        raise AssertionError(f"the remat step differs from the step without: {bad[:6]}")
+    if not peaks[True][0] < peaks[False][0]:
+        raise AssertionError(f"remat peak {peaks[True][0]:.3f} GiB not below {peaks[False][0]:.3f}")
+    del models
+    torch.cuda.empty_cache()
+    return {"peak_gib": peaks[True][0], "peak_gib_no_remat": peaks[False][0],
+            "base_gib": peaks[True][1]}
+
+
+def run_athena(seed: int, dev, tmp: str) -> dict:
+    """The JAX study's Athena command through ``train_onecube.main`` from the
+    eight trained nets: launches exact (remat's recomputations counted), the
+    step median; the peaks with and without remat (bitwise equal steps); the
+    three-way step at the trained weights judged by ``judge_step``; the
+    losses against the restated formulas."""
+    vol = synthetic_volume(seed + 10, ATHENA_VOLUME)
+    data = os.path.join(tmp, "athena_data")
+    tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
+    ckpt = os.path.join(tmp, "athena_ckpt")
+    os.makedirs(os.path.join(ckpt, ATHENA_NAME))
+    for n in ATHENA_MODEL_NAMES:
+        f = f"iter_{ATHENA_LOAD_ITER}_net_{n}.npz"
+        os.symlink(os.path.join(ATHENA_STATE, f), os.path.join(ckpt, ATHENA_NAME, f))
+    argv = ["--dataroot", data, "--checkpoints_dir", ckpt, "--name", ATHENA_NAME, *ATHENA_ARGS,
+            "--continue_train", "--load_iter", str(ATHENA_LOAD_ITER),
+            "--max_iters", str(ATHENA_ITERS)]
+    kernel_ops.reset_launches()
+    res = train_onecube.main(argv)
+    launches = kernel_ops.launches()
+    expected = {k: ATHENA_ITERS * v for k, v in ATHENA_REMAT_STEP_LAUNCHES.items()}
+    per_step = {k: v // ATHENA_ITERS for k, v in launches.items()}
+    log(f"  launches over {ATHENA_ITERS} steps {launches} ({per_step} per step), expected "
+        f"{expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    if res["total_iters"] != ATHENA_LOAD_ITER + 1 + ATHENA_ITERS or not all(
+            math.isfinite(v) for step in res["losses"] for v in step.values()):
+        raise AssertionError(f"the Athena run ended at {res['total_iters']} with losses "
+                             f"{res['losses']}")
+    if list(res["losses"][0]) != ATHENA_LOSS_NAMES:
+        raise AssertionError(f"Athena's losses {list(res['losses'][0])}")
+    step_ms = _median_ms(res["step_seconds"])
+    log(f"  step ms ({ATHENA_CROP}^3, bf16, --remat, trained nets): first "
+        f"{1e3 * res['step_seconds'][0]:.1f}, then "
+        + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"][1:])
+        + f"; median {step_ms:.1f} ms")
+    log("  last losses: " + ", ".join(f"{k} {v:.5g}" for k, v in res["losses"][-1].items()))
+    del res
+    torch.cuda.empty_cache()
+
+    flats = athena_flats()
+    inputs = athena_inputs(vol, dev, seed + 11)
+    real, _ = inputs(None)
+    log(f"  one Athena step at {ATHENA_CROP}^3 from the trained nets:")
+    mem = check_peaks(lambda remat: athena_model(flats, dev, remat=remat),
+                      lambda model: model.optimize_parameters(real, None), dev,
+                      {True: ATHENA_REMAT_STEP_LAUNCHES, False: ATHENA_STEP_LAUNCHES})
+    terms = check_athena_terms(athena_model(flats, dev), real)
+    runs = model_three_ways(lambda plain, precision: athena_model(flats, dev, plain=plain,
+                                                                  precision=precision), inputs)
+    pooled = report_three_ways(f"Athena step at {ATHENA_CROP}^3 from the trained nets", runs,
+                               ATHENA_DIRECT, ATHENA_LOSS_NAMES, ATHENA_D_NAMES)
+    return {"launches": launches, "per_step": per_step, "step_ms": step_ms, **mem,
+            "pooled": pooled, "terms": terms}
+
+
+def dryops_inputs(vol: np.ndarray, dev, seed: int):
+    """(make(plain, precision) -> Dryops model with the seed's Kaiming
+    weights, the dataset of ``vol`` on the card, two crops' draws, the
+    generator of the step's draws)."""
+    argv = ["--dataroot", "unused", *DRYOPS_ARGS]
+    opt = train_options.build_parser(argv).parse_args(argv)
+
+    def make(plain, precision):
+        opt.precision = precision
+        model = create_model(opt, dev, plain=plain)
+        model.init_weights(seed)
+        return model
+
+    dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
+    gen = torch.Generator().manual_seed(seed + 13)
+    return make, dataset, [dataset.draws(gen) for _ in range(2)], gen
+
+
+def check_dryops_accumulation(vol: np.ndarray, dev, seed: int) -> float:
+    """Dryops' accumulation of two crops under one step's draws against the
+    mean of their gradients under those draws (``check_accumulation``)."""
+    make, dataset, geometry, gen = dryops_inputs(vol, dev, seed)
+    model = make(False, "bfloat16")
+    err = check_accumulation(model, lambda i: dataset.crop(*geometry[i]), 2,
+                             model.draw_probes((CROP,) * 3, gen))
+    del model
+    torch.cuda.empty_cache()
+    return err
+
+
+def run_dryops(seed: int, dev, tmp: str) -> dict:
+    """Dryops through ``train_onecube.main`` at 108^3 from random Kaiming
+    weights: launches exact, the step median; the three-way step judged by
+    ``judge_step`` at the random-weight limits; the accumulation of two
+    crops under one set of draws against the mean of their gradients."""
+    vol = synthetic_volume(seed + 12, TRAIN_VOLUME)
+    data = os.path.join(tmp, "dryops_data")
+    tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
+    argv = ["--dataroot", data, "--checkpoints_dir", os.path.join(tmp, "dryops_ckpt"),
+            "--name", "dryops", *DRYOPS_ARGS, "--max_iters", str(DRYOPS_ITERS), "--seed",
+            str(seed)]
+    kernel_ops.reset_launches()
+    res = train_onecube.main(argv)
+    launches = kernel_ops.launches()
+    expected = {k: DRYOPS_ITERS * v for k, v in DRYOPS_STEP_LAUNCHES.items()}
+    log(f"  launches over {DRYOPS_ITERS} steps {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    if not all(math.isfinite(v) for step in res["losses"] for v in step.values()):
+        raise AssertionError(f"a Dryops loss is not finite: {res['losses']}")
+    step_ms = _median_ms(res["step_seconds"])
+    log(f"  step ms ({CROP}^3, bf16): first {1e3 * res['step_seconds'][0]:.1f}, then "
+        + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"][1:])
+        + f"; median {step_ms:.1f} ms")
+    del res
+
+    make, dataset, geometry, gen = dryops_inputs(vol, dev, seed)
+
+    def inputs(model):
+        return dataset.crop(*geometry[0]), model.draw_probes((CROP,) * 3, gen)
+
+    runs = model_three_ways(make, inputs)
+    pooled = report_three_ways(f"Dryops step at {CROP}^3, random weights", runs, STEP_DIRECT,
+                               DRYOPS_LOSS_NAMES, DRYOPS_D_NAMES)
+    acc = check_dryops_accumulation(vol, dev, seed)
+    return {"launches": launches, "step_ms": step_ms, "pooled": pooled, "accum_err": acc}
+
+
+def host_rotation_reference(sl: np.ndarray, angle: float) -> np.ndarray:
+    """``rotate_clean`` of one uint16 slice in float64, independently of the
+    twin: the inverse of the host geometry's forward map, then
+    ``scipy.ndimage.map_coordinates`` (order 1) over the inscribed crop."""
+    from scipy.ndimage import map_coordinates
+
+    h, w = sl.shape
+    _, _, x1, y1, cw, ch, fwd = warp.rotation_geometry_f64(float(w), float(h), float(angle))
+    m = np.array([[fwd[0], fwd[1], fwd[2]], [fwd[3], fwd[4], fwd[5]], [0, 0, 1]])
+    inv = np.linalg.inv(m)
+    yy, xx = np.mgrid[y1:y1 + ch, x1:x1 + cw].astype(np.float64)
+    sx = inv[0, 0] * xx + inv[0, 1] * yy + inv[0, 2]
+    sy = inv[1, 0] * xx + inv[1, 1] * yy + inv[1, 2]
+    return map_coordinates(sl.astype(np.float64), [sy, sx], order=1, mode="grid-constant",
+                           cval=0.0)
+
+
+def check_host_rotation(vol: np.ndarray) -> dict:
+    """The host chain's slice rotation (``data/warp.py``) on eight uint16
+    slices of ``vol`` at HOST_ROT_ANGLES against ``host_rotation_reference``
+    within HOST_ROT_*_LSB."""
+    worst, means = 0.0, []
+    for angle in HOST_ROT_ANGLES:
+        got = warp.rotate_clean(vol[:8], angle).astype(np.float64)
+        want = np.stack([host_rotation_reference(sl, angle) for sl in vol[:8]])
+        d = np.abs(got - want)
+        worst, means = max(worst, float(d.max())), means + [float(d.mean())]
+    log(f"  host chain rotation at {HOST_ROT_ANGLES} deg against scipy float64: max "
+        f"{worst:.3f} LSB, mean {max(means):.4f} LSB (limits {HOST_ROT_MAX_LSB}, "
+        f"{HOST_ROT_MEAN_LSB})")
+    if not (worst <= HOST_ROT_MAX_LSB and max(means) <= HOST_ROT_MEAN_LSB):
+        raise AssertionError(f"host rotation off float64: max {worst}, mean {max(means)}")
+    return {"max_lsb": worst, "mean_lsb": max(means)}
+
+
+def run_epoch(seed: int, dev, tmp: str) -> dict:
+    """The epoch trainer over three 160^3 TIFFs: launches exact, the
+    host chain's seconds per item beside the step time, the checkpoints of
+    the epoch; the same epoch under torch.profiler for the device's idle
+    share; the host rotation against float64."""
+    data = os.path.join(tmp, "epoch_data")
+    vols = [synthetic_volume(seed + 20 + i, TRAIN_VOLUME) for i in range(EPOCH_VOLUMES)]
+    for i, vol in enumerate(vols):
+        tiffio.imwrite(os.path.join(data, f"volume{i + 1}.tif"), vol)
+    rot = check_host_rotation(vols[0])
+    ckpt = os.path.join(tmp, "epoch_ckpt")
+    argv = ["--dataroot", data, "--checkpoints_dir", ckpt, "--name", "epoch", *EPOCH_ARGS,
+            "--seed", str(seed)]
+    kernel_ops.reset_launches()
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = kernel_ops.launches()
+    expected = {k: EPOCH_VOLUMES * v for k, v in STEP_LAUNCHES.items()}
+    log(f"  launches over {EPOCH_VOLUMES} items {launches}, expected {expected}")
+    if launches != expected or res["total_iters"] != EPOCH_VOLUMES:
+        raise AssertionError(f"launch counts {launches} != {expected} ({res['total_iters']} "
+                             "items)")
+    if not all(math.isfinite(v) for step in res["losses"] for v in step.values()):
+        raise AssertionError(f"an epoch loss is not finite: {res['losses']}")
+    written = os.listdir(os.path.join(ckpt, "epoch"))
+    missing = [f"{s}_net_{n}.{e}" for s in ("1", "latest") for n in MODEL_NAMES for e in ("npz",)
+               if f"{s}_net_{n}.npz" not in written]
+    if missing or "1_optim.npz" not in written or "latest_optim.npz" not in written:
+        raise AssertionError(f"epoch checkpoints missing: {missing}")
+    item_s, step_ms = res["item_seconds"], _median_ms(res["step_seconds"])
+    log(f"  epoch of {EPOCH_VOLUMES} items in {wall:.3f} s; host chain seconds per item "
+        + ", ".join(f"{t:.3f}" for t in item_s) + "; step ms "
+        + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"])
+        + "; the loop waited " + ", ".join(f"{t:.3f}" for t in res["wait_seconds"])
+        + " s for its items")
+    del res
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        train.main([*argv, "--name", "epoch_profiled"])
+    loop_ms, busy, ops = _range_device_ms(prof, "epoch_loop")
+    idle = max(0.0, 1 - busy / loop_ms)
+    log(f"  the epoch under torch.profiler: the loop's range {loop_ms:.1f} ms (start-up "
+        f"excluded), device time in it {busy:.1f} ms, idle share {idle:.3f}, {ops} device "
+        "operations")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "item_s": item_s, "step_ms": step_ms, "idle": idle,
+            "rotation": rot, "wall_s": wall}
+
+
+def run_trained_dice(seed: int, dev, tmp: str) -> dict:
+    """The slice's tile pipeline (``test_dice.main``, its flags and volume)
+    on the JAX study's trained Apollo G_A: launches as the slice's, the
+    output against the plain versions in f32 and in bf16 within TRAINED_*."""
+    vol = synthetic_volume(seed)
+    os.makedirs(os.path.join(tmp, "data"))
+    np.save(os.path.join(tmp, "data", "volume.npy"), vol)
+    os.makedirs(os.path.join(tmp, "ckpt", "trained"))
+    os.symlink(TRAINED_G_A, os.path.join(tmp, "ckpt", "trained", "iter_1_net_G_A.npz"))
+    flat = load_npz(TRAINED_G_A)
+    grid = DiceGrid(pad_for_dicing(vol, 120, 15).shape, 120, 15, 10)
+    batches = grid.z_steps * -(-(grid.y_steps * grid.x_steps) // 2)
+    expected = {name: 0 for name in kernel_ops.KERNELS}
+    expected.update({"wconv3x3x3": 2 * batches, "pair_sums": 10 * batches,
+                     "affine_map_act": 10 * batches})
+    kernel_ops.reset_launches()
+    res = test_dice.main(["--dataroot", os.path.join(tmp, "data"), "--name", "trained",
+                          "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--load_iter", "1",
+                          "--model_suffix", "_A", "--results_dir", os.path.join(tmp, "results"),
+                          *SLICE_ARGS])
+    launches = kernel_ops.launches()
+    log(f"  launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    out = res["fake"]
+    outs, _ = plain_outputs(flat, vol, dev, ("bfloat16", "float32"))
+    ref = outs["float32"]
+    p_err, k_err = lsb_stats(outs["bfloat16"], ref), lsb_stats(out, ref)
+    kp = np.abs(out.astype(np.int64) - outs["bfloat16"])
+    log(f"  trained G_A against the f32 plain output: kernels (bf16) {k_err}; plain versions "
+        f"(bf16) {p_err}; kernels vs plain (bf16): max {int(kp.max())} LSB, mean "
+        f"{float(kp.mean()):.3f} LSB, {float((kp > 0).mean()):.4f} of voxels differ (limits "
+        f"{TRAINED_KP_MAX_LSB}, {TRAINED_KP_MEAN_LSB}); output mean {out.mean():.1f} std "
+        f"{out.std():.1f}")
+    if (k_err["mean_lsb"] > SLICE_MEAN_RATIO * p_err["mean_lsb"]
+            or k_err["max_lsb"] > p_err["max_lsb"] + SLICE_MAX_EXTRA_LSB):
+        raise AssertionError(f"trained G_A: kernels less accurate than the plain path: {k_err} "
+                             f"vs {p_err}")
+    if kp.max() > TRAINED_KP_MAX_LSB or kp.mean() > TRAINED_KP_MEAN_LSB:
+        raise AssertionError(f"trained G_A: kernels off the plain path: max {kp.max()}, mean "
+                             f"{kp.mean()}")
+    return {"launches": launches, "k_err": k_err, "p_err": p_err,
+            "kp_max": int(kp.max()), "kp_mean": float(kp.mean())}
+
+
+def profile_athena_step(dev, seed: int) -> None:
+    """Where the time of the study's Athena step goes: a warm step from the
+    trained nets timed on the host clock, then one under torch.profiler,
+    device time by kernel, the device's idle share and operations."""
+    model = athena_model(athena_flats(), dev)
+    real, _ = athena_inputs(synthetic_volume(seed + 10, ATHENA_VOLUME), dev, seed + 14)(model)
+
+    def step():
+        model.optimize_parameters(real, None)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    step()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    log(f"  warm Athena step ({ATHENA_CROP}^3, bf16, --remat, trained nets) wall {wall:.1f} ms; "
+        f"device time {busy:.1f} ms (idle share {max(0.0, 1 - busy / wall):.3f}); "
+        f"{sum(r[2] for r in rows)} device operations")
+    for key, ms, count in rows[:16]:
+        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<5d} {key[:90]}")
+    del model
 
 
 def profile_pipeline(dev, seed: int) -> None:
@@ -1696,6 +2189,26 @@ def profile_legacy(dev, seed: int, cubes: int = 3) -> None:
         f"({TILE ** 3 * 4 / 1e6:.1f} MB up and {2 * TILE ** 3 * 4 / 1e6:.1f} MB back per cube)")
     for key, ms, count in rows[:12]:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def _range_device_ms(prof, name: str) -> tuple:
+    """(wall ms of the host range ``name``, device ms inside it, device
+    operations inside it) from a torch.profiler run: each kernel and copy
+    clipped to the range."""
+    ranges = [e.time_range for e in prof.events() if e.name == name
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(ranges) != 1:
+        raise AssertionError(f"expected one profiler range {name!r}, found {len(ranges)}")
+    lo, hi = ranges[0].start, ranges[0].end
+    busy, ops = 0.0, 0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False) or e.name == name):
+            continue
+        overlap = min(e.time_range.end, hi) - max(e.time_range.start, lo)
+        if overlap > 0:
+            busy, ops = busy + overlap, ops + 1
+    return (hi - lo) / 1e3, busy / 1e3, ops
 
 
 def _device_rows(prof):
@@ -1882,6 +2395,31 @@ def main(argv=None) -> int:
                      f"{st['peak_gib_no_remat']:.3f} without, bitwise equal; trained-weight "
                      f"gradient error against f32 (kernels / plain bf16) {st['pooled']}")
 
+    with Phase("athena") as ph, tempfile.TemporaryDirectory() as tmp:
+        at = run_athena(args.seed, dev, tmp)
+        ph.result = (f"{ATHENA_CROP}^3 Athena --remat step {at['step_ms']:.1f} ms (median of "
+                     f"{ATHENA_ITERS - 1}); peak {at['peak_gib']:.3f} GiB with remat, "
+                     f"{at['peak_gib_no_remat']:.3f} without, bitwise equal; trained-weight "
+                     f"gradient error against f32 (kernels / plain bf16) {at['pooled']}")
+
+    with Phase("dryops") as ph, tempfile.TemporaryDirectory() as tmp:
+        dr = run_dryops(args.seed, dev, tmp)
+        ph.result = (f"{CROP}^3 Dryops step {dr['step_ms']:.1f} ms (median of "
+                     f"{DRYOPS_ITERS - 1}); gradient error against f32 (kernels / plain bf16) "
+                     f"{dr['pooled']}; accumulation {dr['accum_err']:.3g}")
+
+    with Phase("epoch") as ph, tempfile.TemporaryDirectory() as tmp:
+        ep = run_epoch(args.seed, dev, tmp)
+        ph.result = (f"{EPOCH_VOLUMES} items of {TRAIN_VOLUME}^3, host chain "
+                     f"{np.median(ep['item_s']):.3f} s per item, step {ep['step_ms']:.1f} ms, "
+                     f"idle share {ep['idle']:.3f}; host rotation {ep['rotation']}")
+
+    with Phase("trained G_A") as ph, tempfile.TemporaryDirectory() as tmp:
+        tg = run_trained_dice(args.seed, dev, tmp)
+        ph.result = (f"trained G_A, {VOLUME}^3 bf16: against f32 {tg['k_err']} (plain bf16 "
+                     f"{tg['p_err']}); against plain bf16 max {tg['kp_max']}, mean "
+                     f"{tg['kp_mean']:.3f} LSB")
+
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
@@ -1890,6 +2428,7 @@ def main(argv=None) -> int:
             profile_legacy(dev, args.seed)
             profile_train_step(dev, args.seed)
             profile_study_step(dev, args.seed)
+            profile_athena_step(dev, args.seed)
 
     # Times: the inference kernels' rows sum one 2 x 140^3 tile batch's
     # launches, the training kernels' rows one 108^3 step's; the forward
@@ -1913,7 +2452,9 @@ def main(argv=None) -> int:
                    "legacy": lg["launches"][name], "legacy_tta": lg["tta_launches"][name],
                    "run": lg["run_launches"][name], "train": tr["launches"][name],
                    "train_f32": tr["f32_launches"][name], "resume": rs["launches"][name],
-                   "study": st["launches"][name]}
+                   "study": st["launches"][name], "athena": at["launches"][name],
+                   "dryops": dr["launches"][name], "epoch": ep["launches"][name],
+                   "trained_dice": tg["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -25,9 +25,15 @@ with an accumulator that drops the last crop and with one that divides by
 N - 1, and remat against no remat (``check_remat``) with a remat whose
 recomputation runs a U-Net skip block on a zeroed skip half; and its
 trained-weight step check with the faulty wrappers above that it must
-catch (``TRAINED_STEP_FAULTS``).  It exits
-nonzero unless the runs as they are pass their checks and every fault
-fails one.
+catch (``TRAINED_STEP_FAULTS``).  Then the checks of the slice's other
+models and of the host chain (``NEW_FAULTS``): Athena's losses against
+their restated formulas (``check_athena_terms``) with D_A_yz probing the
+real crop on the source axis, and with ``all_slices`` slicing the next
+axis; Dryops' accumulation (``check_dryops_accumulation``) with an
+accumulator that redraws the probes for each crop; the host chain's
+rotation (``check_host_rotation``) with a warp whose source coordinates
+are 1/32 pixel off.  It exits nonzero unless the runs as they are pass
+their checks and every fault fails one.
 """
 
 from __future__ import annotations
@@ -41,12 +47,17 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 from neuroclear_tpu_torch import test_dice
+from neuroclear_tpu_torch.data import warp
 from neuroclear_tpu_torch.data.dicing import DiceCube
+from neuroclear_tpu_torch.models import axial_to_lateral_gan_athena_model as athena
+from neuroclear_tpu_torch.models import gan_common
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import ApolloModel
+from neuroclear_tpu_torch.models.axial_to_lateral_gan_dryops_model import DryopsModel
 from neuroclear_tpu_torch.nn import generators
 from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
 from neuroclear_tpu_torch.utils.assemble import Assemble_Dice
@@ -262,6 +273,90 @@ REMAT_FAULTS = [("remat recomputing a skip block without its skip half", generat
 TRAINED_STEP_FAULTS = [f for f in FAULTS if f[0] != "dw without the last voxel box of each chunk"]
 
 
+def _d_a_yz_real_on_source(pairs):
+    """Athena's D step with D_A_yz probing the real crop on the source axis
+    (the symmetric-looking pairing the JAX step does not have)."""
+    return [("D_A_yz", "source", "fake", "source") if p[0] == "D_A_yz" else p for p in pairs]
+
+
+def _next_axis(f):
+    """``all_slices`` slicing the next axis."""
+    def fn(vol, axis):
+        return f(vol, (axis + 1) % 3)
+    return fn
+
+
+def _redraws_per_crop(f):
+    """An accumulator that draws new probes for every crop after the first
+    (JAX closes one step's draws over all N)."""
+    def fn(self, crop, n, draws):
+        gen = torch.Generator().manual_seed(1234)
+        outs = []
+        for i in range(n):
+            d = draws if i == 0 else self.draw_probes(tuple(crop(i).shape[1:4]), gen)
+            outs.append(f(self, lambda _, i=i: crop(i), 1, d))
+        losses = {k: torch.stack([o[0][k] for o in outs]).mean() for k in outs[0][0]}
+        g = [sum(o[-2][j] for o in outs) / n for j in range(len(outs[0][-2]))]
+        d = [sum(o[-1][j] for o in outs) / n for j in range(len(outs[0][-1]))]
+        return (losses, *outs[-1][1:-2], g, d)
+    return fn
+
+
+def _off_by_a_32nd(f):
+    """The warp's source x coordinates 1/32 pixel off."""
+    def fn(m_inv, width, height):
+        sx, sy = f(m_inv, width, height)
+        return sx + np.float32(1 / 32), sy
+    return fn
+
+
+@contextlib.contextmanager
+def _replaced(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def new_model_failures(seed, dev) -> bool:
+    """Athena's restated-loss check, Dryops' accumulation check and the host
+    rotation check as they are (each must pass) and with each of their
+    faults (each must fail); returns whether all did as they must."""
+    vol = cs.synthetic_volume(seed + 10, cs.ATHENA_VOLUME)
+    flats = cs.athena_flats()
+    real, _ = cs.athena_inputs(vol, dev, seed + 11)(None)
+    train_vol = cs.synthetic_volume(seed + 12, cs.TRAIN_VOLUME)
+    checks = [
+        ("Athena losses", lambda: cs.check_athena_terms(cs.athena_model(flats, dev), real),
+         [("D_A_yz's real probed on the source axis",
+           _replaced(athena, "D_PAIRS", _d_a_yz_real_on_source(athena.D_PAIRS))),
+          ("all_slices on the next axis", _swapped(gan_common, "all_slices", _next_axis))]),
+        ("Dryops accumulation", lambda: cs.check_dryops_accumulation(train_vol, dev, seed),
+         [("Dryops accumulator redrawing per crop",
+           _swapped(DryopsModel, "accumulate", _redraws_per_crop))]),
+        ("host rotation", lambda: cs.check_host_rotation(cs.synthetic_volume(seed + 20,
+                                                                             cs.TRAIN_VOLUME)),
+         [("host warp 1/32 pixel off", _swapped(warp, "_source_coords", _off_by_a_32nd))]),
+    ]
+    ok = True
+    for name, check, faults in checks:
+        for i, (label, fault) in enumerate([(f"{name} as it is", contextlib.nullcontext())]
+                                           + faults):
+            try:
+                with fault:
+                    check()
+            except AssertionError as e:
+                cs.log(f"== {label}: the {name} check fails: {str(e)[:300]}")
+                ok &= i > 0
+            else:
+                cs.log(f"== {label}: the {name} check passes")
+                ok &= i == 0
+            torch.cuda.empty_cache()
+    return ok
+
+
 def study_failures(seed, dev) -> bool:
     """The study phase's accumulation and remat checks as they are (each
     must pass) and with each of their faults (each must fail), and its
@@ -400,6 +495,7 @@ def main(argv=None) -> int:
             ok &= run(label, args.seed, vol, dev) > 0
     ok &= legacy_failures(args.seed, dev)
     ok &= study_failures(args.seed, dev)
+    ok &= new_model_failures(args.seed, dev)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

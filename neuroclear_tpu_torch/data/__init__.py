@@ -1,20 +1,31 @@
 """Dataset registry and loader, the port of ``neuroclear_tpu/data/__init__.py``:
 ``--dataset_mode foo`` -> module ``neuroclear_tpu_torch.data.foo_dataset``,
 class ``FooDataset`` (case-insensitive).  The ported datasets are
-``diceImage`` and ``singlevolume``; any other name is refused.
+``PORTED``; any other name is refused.
 
-The loader serves ``test_dice``, which sets ``serial_batches`` and
-``num_threads`` 0 as the JAX CLI does: it yields the batches in file order
-on the caller's thread and reads neither option.
+The loader batches ``opt.batch_size`` items, at most ``max_dataset_size``
+of them.  For the epoch trainer's datasets (``cube``, ``singlevolume``) it
+shuffles the order unless ``--serial_batches``, from the run's explicit
+numpy generator (the JAX loader shuffles with numpy's global state), and
+with ``--num_threads`` > 0 prefetches the items on a thread, as the JAX
+loader does; their host chains draw from the same generator.  The inference
+datasets (``diceImage``, ``simulationcrop``) serve ``test_dice``'s per-cube
+loop: their items come in file order on the caller's thread.  The loader
+keeps the host seconds each batch took to cut (``seconds``).
 """
 
 from __future__ import annotations
 
 import importlib
+import queue
+import threading
+import time
 
 import numpy as np
 
-PORTED = ("diceImage", "singlevolume")
+from .base_dataset import INFERENCE_DATASETS
+
+PORTED = ("diceImage", "singlevolume", "cube", "simulationcrop")
 
 
 def find_dataset_using_name(dataset_name: str):
@@ -31,22 +42,27 @@ def find_dataset_using_name(dataset_name: str):
                               f"matches {target} in lowercase.")
 
 
-def create_dataset(opt):
-    """The dataset of ``opt.dataset_mode`` behind a batching loader."""
-    return CustomDatasetDataLoader(opt)
+def create_dataset(opt, rng: np.random.Generator = None):
+    """The dataset of ``opt.dataset_mode`` behind a batching loader; ``rng``
+    draws the training datasets' order and augmentations."""
+    return CustomDatasetDataLoader(opt, rng)
 
 
 class CustomDatasetDataLoader:
-    """Batches of ``opt.batch_size`` items in file order, at most
-    ``max_dataset_size`` items."""
-
-    def __init__(self, opt):
-        self.opt = opt
+    def __init__(self, opt, rng: np.random.Generator = None):
         dataset_class = find_dataset_using_name(opt.dataset_mode)
-        self.dataset = dataset_class(opt)
-        print(f"dataset [{type(self.dataset).__name__}] was created")
+        self.inference = opt.dataset_mode in INFERENCE_DATASETS
+        if self.inference:
+            self.dataset = dataset_class(opt)
+        else:
+            self.rng = rng if rng is not None else np.random.default_rng()
+            self.dataset = dataset_class.from_options(opt, self.rng)
+        print(f"dataset [{type(self.dataset).__name__}] was created", flush=True)
         self.batch_size = opt.batch_size
+        self.serial = self.inference or getattr(opt, "serial_batches", False)
+        self.num_threads = 0 if self.inference else getattr(opt, "num_threads", 0)
         self.max_size = getattr(opt, "max_dataset_size", float("inf"))
+        self.seconds = []
 
     def load_data(self):
         return self
@@ -64,12 +80,45 @@ class CustomDatasetDataLoader:
                 out[k] = vals if len(vals) > 1 else vals[0]
         return out
 
-    def __iter__(self):
+    def _batches(self) -> list:
         order = np.arange(len(self.dataset))
-        # the batches within max_dataset_size, as the JAX loader yields them
+        if not self.serial:
+            self.rng.shuffle(order)
         n_batches = -(-len(order) // self.batch_size)
         if self.max_size != float("inf"):
             n_batches = min(n_batches, -(-int(self.max_size) // self.batch_size))
-        for i in range(n_batches):
-            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
-            yield self._collate([self.dataset[int(j)] for j in idx])
+        return [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(n_batches)]
+
+    def _produce(self, idx):
+        t0 = time.perf_counter()
+        batch = self._collate([self.dataset[int(j)] for j in idx])
+        self.seconds.append(time.perf_counter() - t0)
+        return batch
+
+    def __iter__(self):
+        batches = self._batches()
+        if self.num_threads <= 0:
+            for idx in batches:
+                yield self._produce(idx)
+            return
+        # one producer thread, a bounded queue: the next items are cut while
+        # the caller trains on the last ones; the draws keep the batch order
+        q = queue.Queue(maxsize=max(2, self.num_threads))
+        stop, failed = object(), []
+
+        def worker():
+            try:
+                for idx in batches:
+                    q.put(self._produce(idx))
+            except BaseException as e:  # re-raised on the caller's thread
+                failed.append(e)
+            q.put(stop)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is stop:
+                if failed:
+                    raise failed[0]
+                return
+            yield item

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
+
 from ..utils import tiffio
 from ..utils.imageops import pad_for_dicing
 from .base_dataset import BaseDataset, get_transform
@@ -27,7 +29,7 @@ class DiceImageDataSet(BaseDataset):
         if not found:
             raise FileNotFoundError(f"no volume under {opt.dataroot}")
         self.A_path = found[0]
-        vol = tiffio.imread(self.A_path)
+        vol = self._load()
         if vol.ndim != 3:
             raise ValueError(f"{self.A_path}: expected a (z, y, x) volume, got {vol.shape}")
         self.roi_size = opt.dice_size[0]
@@ -37,6 +39,9 @@ class DiceImageDataSet(BaseDataset):
         self.volume = pad_for_dicing(vol, self.roi_size, overlap=self.overlap)
         self.image_size = self.volume.shape
         self.grid = DiceGrid(self.image_size, self.roi_size, self.overlap, self.border_cut)
+
+    def _load(self) -> np.ndarray:
+        return tiffio.imread(self.A_path)
 
     @functools.cached_property
     def cube(self) -> DiceCube:

@@ -1,17 +1,25 @@
-"""Training data: ONE volume on the device, each sample a fresh random
-augmentation of it, the port of ``neuroclear_tpu/data/singlevolume_dataset.py``'s
-device path (``sample``): the preprocess tokens ``random3Drotate`` or
-``random90rotate``, ``randomcrop``, ``randomflip``, ``addColorChannel`` and
-``addBatchChannel``.  Both rotations together leave the JAX package's device
-path for its host cv2 chain, which the port does not have: that is refused."""
+"""Training data: ONE volume, each sample a fresh random augmentation of it,
+the port of ``neuroclear_tpu/data/singlevolume_dataset.py``.  Its device
+path (``sample``, for ``train_onecube``) keeps the volume on the device and
+takes the preprocess tokens ``random3Drotate`` or ``random90rotate``,
+``randomcrop``, ``randomflip``, ``addColorChannel`` and ``addBatchChannel``
+(both rotations together are refused there: the JAX package leaves its
+device path for the host chain then).  Its host path (``__getitem__``, for
+the epoch trainer, ten items an epoch) runs the host chain
+(``base_dataset.get_transform``) on the volume in host memory."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..ops.augment import crop_draws, draw_angle, sample_crop, sample_rotated_crop
+from ..utils import tiffio
 from ..utils.imageops import dtype_inv_scale
+from .base_dataset import get_transform
+from .image_folder import make_dataset
 
 PORTED_TOKENS = {"random3Drotate", "random90rotate", "randomcrop", "randomflip",
                  "addColorChannel", "addBatchChannel"}
@@ -35,6 +43,18 @@ def check_preprocess(preprocess: str) -> set:
     if "randomcrop" not in tokens:
         raise NotImplementedError("the port samples random crops only (randomcrop)")
     return tokens
+
+
+def volume_path(dataroot: str) -> str:
+    """The training volume: ``dataroot`` itself if it is a file, else the
+    first image file under it in sorted order (``make_dataset(dataroot,
+    1)[0]``, as the JAX dataset picks it)."""
+    if os.path.isfile(dataroot):
+        return dataroot
+    found = make_dataset(dataroot, 1)
+    if not found:
+        raise FileNotFoundError(f"{dataroot} holds no volume (TIFF or .npy)")
+    return found[0]
 
 
 class SingleVolumeDataset:
@@ -86,3 +106,25 @@ class SingleVolumeDataset:
 
     def sample(self, generator: torch.Generator) -> torch.Tensor:
         return self.crop(*self.draws(generator))
+
+    @classmethod
+    def from_options(cls, opt, rng: np.random.Generator):
+        """The epoch trainer's dataset: the volume of ``--dataroot`` on the
+        host, its chain drawing from ``rng``."""
+        path = volume_path(opt.dataroot)
+        return HostVolumeDataset(tiffio.imread(path), opt, rng, path)
+
+
+class HostVolumeDataset:
+    """The JAX dataset's host path: every item the volume through the random
+    host chain of ``opt.preprocess``, drawing from ``rng``."""
+
+    def __init__(self, vol: np.ndarray, opt, rng: np.random.Generator, path: str = ""):
+        self.A_img_np, self.A_path = vol, path
+        self.transform_A = get_transform(opt, rng=rng)
+
+    def __getitem__(self, index):
+        return {"A": self.transform_A(self.A_img_np), "A_paths": self.A_path}
+
+    def __len__(self):
+        return 10  # an epoch is ten items, as in the original

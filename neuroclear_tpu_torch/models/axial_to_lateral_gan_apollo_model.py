@@ -28,18 +28,12 @@ carry the optimizer state in the JAX layout (``models/base_model.py``).
 
 from __future__ import annotations
 
-import dataclasses
-import os
-
 import torch
 
-from .. import resolve_device
 from ..nn import factory
-from ..nn.schedulers import LRController
 from ..nn.losses import l1_loss
-from ..utils.weights import count_params, init_flat, params_from_numpy
-from . import base_model
 from . import gan_common as gc
+from .base_model import BaseModel, ProbeDraws
 
 LAT, AX1, AX2 = 0, 1, 2  # XY, XZ, YZ (apollo_model.py:86-88)
 LOSS_NAMES = ["D_A_lateral", "D_A_axial", "G_A", "G_A_lateral", "G_A_axial", "cycle",
@@ -63,33 +57,39 @@ D_PROBES = [("slice", "real", LAT, "D_A_lateral"), ("proj", "fake", LAT, "D_A_la
             ("slice", "real", AX2, "D_B_axial"), ("slice", "rec", AX2, "D_B_axial")]
 
 
-@dataclasses.dataclass(frozen=True)
-class ProbeDraws:
-    """One step's draws: the MIP depth, then per probe of ``G_PROBES`` and
-    ``D_PROBES`` a slice index in [0, n) or a window start in
-    [0, n - depth)."""
-    depth: int
-    g: tuple
-    d: tuple
+def modify_commandline_options(parser):
+    """Apollo's options (``AxialToLateralGANApolloModel.modify_commandline_options``)."""
+    parser.add_argument("--lambda_A", type=float, default=10.0,
+                        help="strength of the A->B->A reconstruction (cycle) term")
+    parser.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
+    parser.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1],
+                        help="relative weights of the lateral / axial-XZ / axial-YZ terms")
+    parser.add_argument("--randomize_projection_depth", action="store_true",
+                        help="sample a fresh MIP window depth every iteration")
+    parser.add_argument("--projection_depth", type=int, default=10,
+                        help="MIP window depth; the upper bound when randomized")
+    parser.add_argument("--netG_B", default="deep_linear_gen",
+                        help="generator of the backward (B->A) path")
+    return parser
 
 
-class ApolloModel:
-    """The six nets, their f32 parameters and the two Adams, on ``device``.
-    ``plain`` builds the nets on the kernels' plain versions (the reference
-    a run on the card is held against)."""
+def check_nets(opt, netG_B: bool = True) -> None:
+    """NotImplementedError unless the production generators are asked for."""
+    if opt.netG != "unet_deconv" or (netG_B and opt.netG_B != "deep_linear_gen"):
+        raise NotImplementedError("the port's GAN models have netG unet_deconv and netG_B "
+                                  "deep_linear_gen (ROADMAP.md, queue 1)")
+
+
+class ApolloModel(BaseModel):
+    """The six nets, their f32 parameters and the two Adams, on ``device``."""
+
+    G_NAMES, D_NAMES, LOSS_NAMES = G_NAMES, D_NAMES, LOSS_NAMES
+    G_PROBES, D_PROBES = G_PROBES, D_PROBES
+    modify_commandline_options = staticmethod(modify_commandline_options)
 
     def __init__(self, opt, device=None, plain: bool = False):
-        if opt.netG != "unet_deconv" or opt.netG_B != "deep_linear_gen":
-            raise NotImplementedError("the port's Apollo model has netG unet_deconv and "
-                                      "netG_B deep_linear_gen (ROADMAP.md, queue 1)")
-        self.device = resolve_device(device)
-        self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
-        self.cfg = gc.GanStepConfig(
-            gan_mode=opt.gan_mode, lambda_A=opt.lambda_A,
-            lambda_plane=tuple(opt.lambda_plane),
-            randomize_projection_depth=opt.randomize_projection_depth,
-            projection_depth=opt.projection_depth, precision=opt.precision,
-            remat=opt.remat)
+        check_nets(opt)
+        super().__init__(opt, device)
         # one channel in and out, 64 filters, 3-layer discriminators: the
         # production configuration's (the JAX CLI's defaults)
         self.nets = {
@@ -98,106 +98,7 @@ class ApolloModel:
         }
         for name in D_NAMES:
             self.nets[name] = factory.define_D(1, 64, opt.netD, 3, opt.norm, plain=plain)
-        for net in self.nets.values():
-            net.to(self.device)
-        self.g_params = [p for n in G_NAMES for p in self.nets[n].parameters()]
-        self.d_params = [p for n in D_NAMES for p in self.nets[n].parameters()]
-        self.optim_g = gc.make_adam(self.g_params, opt.lr, opt.beta1)
-        self.optim_d = gc.make_adam(self.d_params, opt.lr, opt.beta1)
-        self.base_lr = opt.lr
-        self.lr_controllers = []
-        self.visuals = {}
-
-    # ------------------------------------------------------- setup and lr
-
-    def setup(self, opt) -> None:
-        """``BaseModel.setup``: the two learning-rate controllers, then with
-        ``--continue_train`` the checkpoint ``iter_{load_iter}`` (or
-        ``--epoch``) with its optimizer state."""
-        self.lr_controllers = [LRController(opt.lr_policy, opt) for _ in range(2)]
-        if opt.continue_train:
-            self.load_networks(f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch)
-        self.print_networks(opt.verbose)
-
-    @property
-    def lr_scale(self) -> float:
-        return self.lr_controllers[0].scale if self.lr_controllers else 1.0
-
-    def update_learning_rate(self) -> None:
-        """Step the schedules (the plateau policy sees the metric 0, as the
-        JAX model passes it)."""
-        for c in self.lr_controllers:
-            c.step(0.0)
-
-    # ------------------------------------------------------------- weights
-
-    def init_weights(self, seed: int, init_type: str = "kaiming", gain: float = 0.02) -> None:
-        """Random weights by ``init_type`` (``utils/weights.py::init_flat``;
-        the production command's is kaiming), net i drawn from numpy seed
-        ``seed * 16 + i``."""
-        self.load_flats({name: init_flat(self.nets[name], init_type, gain, seed * 16 + i)
-                         for i, name in enumerate(MODEL_NAMES)})
-
-    def load_flats(self, flats: dict) -> None:
-        """{NAME: JAX flat dict} -> the nets' parameters."""
-        for name, flat in flats.items():
-            net = self.nets[name]
-            net.load_state_dict(params_from_numpy(flat, net))
-
-    def _optim_groups(self):
-        """The two Adams in the JAX state's order ("D", then "G")."""
-        return [(self.optim_d, {n: self.nets[n] for n in D_NAMES}),
-                (self.optim_g, {n: self.nets[n] for n in G_NAMES})]
-
-    def save_networks(self, suffix: str) -> list:
-        """The six nets and ``{suffix}_optim.npz``; returns the paths."""
-        paths = base_model.save_networks(self.nets, self.save_dir, suffix)
-        path = os.path.join(self.save_dir, f"{suffix}_optim.npz")
-        base_model.save_optim(path, self._optim_groups(), self.lr_controllers)
-        return paths + [path]
-
-    def load_networks(self, suffix: str) -> None:
-        base_model.load_networks(self.nets, self.save_dir, suffix)
-        base_model.load_optim(os.path.join(self.save_dir, f"{suffix}_optim.npz"),
-                              self._optim_groups(), self.lr_controllers)
-
-    def print_networks(self, verbose: bool = False) -> None:
-        print("---------- Networks initialized -------------", flush=True)
-        for name in MODEL_NAMES:
-            if verbose:
-                print(self.nets[name], flush=True)
-            print(f"[Network {name}] Total number of parameters : "
-                  f"{count_params(self.nets[name]) / 1e6:.3f} M", flush=True)
-        print("-----------------------------------------------", flush=True)
-
-    # ---------------------------------------------------------------- step
-
-    def draw_probes(self, crop_shape, generator: torch.Generator) -> ProbeDraws:
-        """Depth first, then each probe's index or start, in plan order."""
-        depth = gc.sample_projection_depth(self.cfg, generator)
-
-        def draw(plan):
-            out = []
-            for kind, _, axis, _ in plan:
-                n = crop_shape[axis]
-                hi = n - depth if kind == "proj" else n
-                if hi <= 0:
-                    raise ValueError(f"projection depth {depth} does not fit axis {axis} "
-                                     f"of the crop {tuple(crop_shape)}")
-                out.append(int(torch.randint(0, hi, (), generator=generator)))
-            return tuple(out)
-
-        return ProbeDraws(depth, draw(G_PROBES), draw(D_PROBES))
-
-    def _probes(self, plan, positions, depth, vols):
-        """The discriminators' predictions for each probe of ``plan``."""
-        out = []
-        for (kind, v, axis, d), pos in zip(plan, positions):
-            if kind == "proj":
-                out.append(gc.probe_proj(vols[v], pos, depth, axis, self.nets[d]))
-            else:
-                out.append(gc.probe_slice(vols[v], pos, axis, self.nets[d]))
-        return out
+        self._finish(opt)
 
     def g_loss(self, real, draws: ProbeDraws):
         """``g_loss_fn``: (total, terms, fake, rec); the discriminators are
@@ -234,7 +135,7 @@ class ApolloModel:
                  "D_B_lateral": pairs[3], "D_B_axial": (pairs[4] + pairs[5]) * 0.5}
         return sum(pairs), terms
 
-    def gradients(self, real: torch.Tensor, draws: ProbeDraws):
+    def gradients(self, real, draws: ProbeDraws):
         """One crop's losses, fake, rec and gradients at the current
         parameters, without an update: (losses, fake, rec, g_grads,
         d_grads), the gradients in the order of ``g_params``/``d_params``.
@@ -249,57 +150,5 @@ class ApolloModel:
         losses = {name: terms[name].detach() for name in LOSS_NAMES}
         return losses, fake, rec, g_grads, d_grads
 
-    def accumulate(self, crop, n: int, draws: ProbeDraws):
-        """The ``--grad_accum n`` step's gradients without the update, as
-        ``host_step`` computes them: ``gradients`` of crop ``crop(i)`` for i
-        in order, each at the current (pre-update) parameters and under the
-        one set of ``draws``, added into f32 accumulators that start at zero,
-        then divided by n.  ``crop`` is called just before its crop's
-        micro-step, so the n crops are never resident together.  Returns
-        (losses, real, fake, rec, g_grads, d_grads): the mean of the
-        per-crop losses, the last crop's real, fake and rec, the mean
-        gradients."""
-        g_acc = [torch.zeros_like(p) for p in self.g_params]
-        d_acc = [torch.zeros_like(p) for p in self.d_params]
-        per_crop = []
-        for i in range(n):
-            real = crop(i)
-            losses, fake, rec, g_grads, d_grads = self.gradients(real, draws)
-            torch._foreach_add_(g_acc, list(g_grads))
-            torch._foreach_add_(d_acc, list(d_grads))
-            per_crop.append(losses)
-            del g_grads, d_grads
-        torch._foreach_div_(g_acc, float(n))
-        torch._foreach_div_(d_acc, float(n))
-        losses = {name: torch.stack([l[name] for l in per_crop]).mean() for name in LOSS_NAMES}
-        return losses, real, fake, rec, g_acc, d_acc
 
-    def apply_gradients(self, g_grads, d_grads) -> None:
-        """Adam on both parameter sets at the base rate times the schedule's
-        scale."""
-        lr = self.base_lr * self.lr_scale
-        for params, grads, optim in ((self.g_params, g_grads, self.optim_g),
-                                     (self.d_params, d_grads, self.optim_d)):
-            for group in optim.param_groups:
-                group["lr"] = lr
-            for p, g in zip(params, grads):
-                p.grad = g
-            optim.step()
-            optim.zero_grad(set_to_none=True)
-
-    def optimize_parameters(self, real: torch.Tensor, draws: ProbeDraws):
-        """One training step: (losses, fake, rec); the three volumes are
-        kept as the visuals, on the device."""
-        losses, fake, rec, g_grads, d_grads = self.gradients(real, draws)
-        self.apply_gradients(g_grads, d_grads)
-        self.visuals = {"real": real, "fake": fake, "rec": rec}
-        return losses, fake, rec
-
-    def optimize_parameters_accum(self, crop, n: int, draws: ProbeDraws):
-        """One ``--grad_accum n`` training step (``accumulate``, then one
-        Adam update on the mean gradients): (losses, fake, rec); the last
-        crop's real, fake and rec are kept as the visuals."""
-        losses, real, fake, rec, g_grads, d_grads = self.accumulate(crop, n, draws)
-        self.apply_gradients(g_grads, d_grads)
-        self.visuals = {"real": real, "fake": fake, "rec": rec}
-        return losses, fake, rec
+AxialToLateralGANApolloModel = ApolloModel  # the name the registry looks for

@@ -1,8 +1,11 @@
-"""The checkpoint side of ``neuroclear_tpu/models/base_model.py``: one
-``{suffix}_net_{NAME}.npz`` per network in the JAX flat format, and the
-optimizer state as ``{suffix}_optim.npz`` in the JAX layout, each written
-atomically (a temporary file, then a rename), so that either package loads
-what the other wrote.
+"""``BaseModel``, the port of ``neuroclear_tpu/models/base_model.py``: what
+the three GAN models share (the nets, the G and D Adams in the JAX layout,
+the schedules, weights, checkpoints, the per-crop accumulation and the
+update), and its checkpoint side: one ``{suffix}_net_{NAME}.npz`` per
+network in the JAX flat format, and the optimizer state as
+``{suffix}_optim.npz`` in the JAX layout, each written atomically (a
+temporary file, then a rename), so that either package loads what the other
+wrote.
 
 The JAX package's optimizer state is ``{"D": ScaleByAdamState, "G":
 ScaleByAdamState}`` (optax's ``count, mu, nu``), tree-flattened to arrays
@@ -17,13 +20,17 @@ maps onto it as count -> every parameter's ``step``, mu -> ``exp_avg``, nu
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from ..utils.weights import flat_from_module, jax_named_params, load_npz, params_from_numpy, \
-    to_numpy
+from .. import resolve_device
+from ..nn.schedulers import LRController
+from ..utils.weights import count_params, flat_from_module, init_flat, jax_named_params, \
+    load_npz, params_from_numpy, to_numpy
+from . import gan_common as gc
 
 
 def atomic_savez(path: str, arrays: dict) -> None:
@@ -116,3 +123,223 @@ def load_optim(path: str, groups, lr_controllers) -> bool:
                               "exp_avg": load(m), "exp_avg_sq": load(v)}
     print(f"restored optimizer state from {path}", flush=True)
     return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeDraws:
+    """One step's draws: the MIP depth, then per probe of the model's
+    ``G_PROBES`` and ``D_PROBES`` a slice index in [0, n) or a window start
+    in [0, n - depth)."""
+    depth: int
+    g: tuple
+    d: tuple
+
+
+class BaseModel:
+    """The nets of a GAN model, their f32 parameters and the two Adams, on
+    ``device``.  A subclass names its nets (``G_NAMES``, ``D_NAMES``), its
+    losses (``LOSS_NAMES``) and visuals (``VISUAL_NAMES``: the real crop,
+    then what ``gradients`` returns after the losses), builds ``self.nets``
+    and then calls ``_finish``; it defines ``gradients(real, draws)`` ->
+    (losses, *VISUAL_NAMES[1:], g_grads, d_grads) at the current parameters
+    and, where its step draws probes, ``G_PROBES``/``D_PROBES`` as (kind,
+    volume, axis, discriminator).  ``plain`` builds the nets on the kernels'
+    plain versions (the reference a run on the card is held against)."""
+
+    G_NAMES: list = []
+    D_NAMES: list = []
+    LOSS_NAMES: list = []
+    VISUAL_NAMES: list = ["real", "fake", "rec"]
+    G_PROBES: list = []
+    D_PROBES: list = []
+
+    def __init__(self, opt, device=None):
+        self.device = resolve_device(device)
+        self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
+        self.cfg = gc.GanStepConfig(
+            gan_mode=opt.gan_mode, lambda_A=opt.lambda_A,
+            lambda_plane=tuple(opt.lambda_plane),
+            randomize_projection_depth=getattr(opt, "randomize_projection_depth", False),
+            projection_depth=getattr(opt, "projection_depth", 10), precision=opt.precision,
+            remat=opt.remat)
+        self.nets = {}
+        self.base_lr = opt.lr
+        self.lr_controllers = []
+        self.visuals = {}
+
+    @property
+    def model_names(self) -> list:
+        return self.G_NAMES + self.D_NAMES
+
+    @property
+    def loss_names(self) -> list:
+        return self.LOSS_NAMES
+
+    @property
+    def visual_names(self) -> list:
+        return self.VISUAL_NAMES
+
+    def _finish(self, opt) -> None:
+        """Move the nets to the device and build the G and D Adams."""
+        for net in self.nets.values():
+            net.to(self.device)
+        self.g_params = [p for n in self.G_NAMES for p in self.nets[n].parameters()]
+        self.d_params = [p for n in self.D_NAMES for p in self.nets[n].parameters()]
+        self.optim_g = gc.make_adam(self.g_params, opt.lr, opt.beta1)
+        self.optim_d = gc.make_adam(self.d_params, opt.lr, opt.beta1)
+
+    # ------------------------------------------------------- setup and lr
+
+    def setup(self, opt) -> None:
+        """``BaseModel.setup``: the two learning-rate controllers, then with
+        ``--continue_train`` the checkpoint ``iter_{load_iter}`` (or
+        ``--epoch``) with its optimizer state."""
+        self.lr_controllers = [LRController(opt.lr_policy, opt) for _ in range(2)]
+        if opt.continue_train:
+            self.load_networks(f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch)
+        self.print_networks(opt.verbose)
+
+    @property
+    def lr_scale(self) -> float:
+        return self.lr_controllers[0].scale if self.lr_controllers else 1.0
+
+    def update_learning_rate(self) -> None:
+        """Step the schedules (the plateau policy sees the metric 0, as the
+        JAX model passes it)."""
+        for c in self.lr_controllers:
+            c.step(0.0)
+
+    # ------------------------------------------------------------- weights
+
+    def init_weights(self, seed: int, init_type: str = "kaiming", gain: float = 0.02) -> None:
+        """Random weights by ``init_type`` (``utils/weights.py::init_flat``),
+        net i of ``model_names`` drawn from numpy seed ``seed * 16 + i``."""
+        self.load_flats({name: init_flat(self.nets[name], init_type, gain, seed * 16 + i)
+                         for i, name in enumerate(self.model_names)})
+
+    def load_flats(self, flats: dict) -> None:
+        """{NAME: JAX flat dict} -> the nets' parameters."""
+        for name, flat in flats.items():
+            net = self.nets[name]
+            net.load_state_dict(params_from_numpy(flat, net))
+
+    def _optim_groups(self):
+        """The two Adams in the JAX state's order ("D", then "G")."""
+        return [(self.optim_d, {n: self.nets[n] for n in self.D_NAMES}),
+                (self.optim_g, {n: self.nets[n] for n in self.G_NAMES})]
+
+    def optim_arrays(self) -> dict:
+        """The ``{suffix}_optim.npz`` arrays of the two Adams and schedules."""
+        return optim_arrays(self._optim_groups(), self.lr_controllers)
+
+    def save_networks(self, suffix: str) -> list:
+        """Every net and ``{suffix}_optim.npz``; returns the paths."""
+        paths = save_networks(self.nets, self.save_dir, suffix)
+        path = os.path.join(self.save_dir, f"{suffix}_optim.npz")
+        save_optim(path, self._optim_groups(), self.lr_controllers)
+        return paths + [path]
+
+    def load_networks(self, suffix: str) -> None:
+        load_networks(self.nets, self.save_dir, suffix)
+        self.load_optim(os.path.join(self.save_dir, f"{suffix}_optim.npz"))
+
+    def load_optim(self, path: str) -> bool:
+        return load_optim(path, self._optim_groups(), self.lr_controllers)
+
+    def print_networks(self, verbose: bool = False) -> None:
+        print("---------- Networks initialized -------------", flush=True)
+        for name in self.model_names:
+            if verbose:
+                print(self.nets[name], flush=True)
+            print(f"[Network {name}] Total number of parameters : "
+                  f"{count_params(self.nets[name]) / 1e6:.3f} M", flush=True)
+        print("-----------------------------------------------", flush=True)
+
+    # ---------------------------------------------------------------- step
+
+    def draw_probes(self, crop_shape, generator: torch.Generator):
+        """The step's draws from ``generator``: depth first, then each
+        probe's index or start, in plan order (``ProbeDraws``)."""
+        depth = gc.sample_projection_depth(self.cfg, generator)
+
+        def draw(plan):
+            out = []
+            for kind, _, axis, _ in plan:
+                n = crop_shape[axis]
+                hi = n - depth if kind == "proj" else n
+                if hi <= 0:
+                    raise ValueError(f"projection depth {depth} does not fit axis {axis} "
+                                     f"of the crop {tuple(crop_shape)}")
+                out.append(int(torch.randint(0, hi, (), generator=generator)))
+            return tuple(out)
+
+        return ProbeDraws(depth, draw(self.G_PROBES), draw(self.D_PROBES))
+
+    def _probes(self, plan, positions, depth, vols):
+        """The discriminators' predictions for each probe of ``plan``."""
+        out = []
+        for (kind, v, axis, d), pos in zip(plan, positions):
+            if kind == "proj":
+                out.append(gc.probe_proj(vols[v], pos, depth, axis, self.nets[d]))
+            else:
+                out.append(gc.probe_slice(vols[v], pos, axis, self.nets[d]))
+        return out
+
+    def gradients(self, real: torch.Tensor, draws):
+        raise NotImplementedError
+
+    def accumulate(self, crop, n: int, draws):
+        """The ``--grad_accum n`` step's gradients without the update, as
+        ``host_step`` (and ``grad_accum_scan``) compute them: ``gradients``
+        of crop ``crop(i)`` for i in order, each at the current (pre-update)
+        parameters and under the one set of ``draws``, added into f32
+        accumulators that start at zero, then divided by n.  ``crop`` is
+        called just before its crop's micro-step, so the n crops are never
+        resident together.  Returns (losses, real, *outs, g_grads, d_grads):
+        the mean of the per-crop losses, the last crop's real and outputs
+        (``VISUAL_NAMES``), the mean gradients."""
+        g_acc = [torch.zeros_like(p) for p in self.g_params]
+        d_acc = [torch.zeros_like(p) for p in self.d_params]
+        per_crop = []
+        for i in range(n):
+            real = crop(i)
+            losses, *outs, g_grads, d_grads = self.gradients(real, draws)
+            torch._foreach_add_(g_acc, list(g_grads))
+            torch._foreach_add_(d_acc, list(d_grads))
+            per_crop.append(losses)
+            del g_grads, d_grads
+        torch._foreach_div_(g_acc, float(n))
+        torch._foreach_div_(d_acc, float(n))
+        losses = {name: torch.stack([l[name] for l in per_crop]).mean()
+                  for name in self.LOSS_NAMES}
+        return (losses, real, *outs, g_acc, d_acc)
+
+    def apply_gradients(self, g_grads, d_grads) -> None:
+        """Adam on both parameter sets at the base rate times the schedule's
+        scale."""
+        lr = self.base_lr * self.lr_scale
+        for params, grads, optim in ((self.g_params, g_grads, self.optim_g),
+                                     (self.d_params, d_grads, self.optim_d)):
+            for group in optim.param_groups:
+                group["lr"] = lr
+            for p, g in zip(params, grads):
+                p.grad = g
+            optim.step()
+            optim.zero_grad(set_to_none=True)
+
+    def optimize_parameters(self, real: torch.Tensor, draws):
+        """One training step: (losses, *outs); the real crop and the outputs
+        are kept as the visuals, on the device."""
+        losses, *outs, g_grads, d_grads = self.gradients(real, draws)
+        self.apply_gradients(g_grads, d_grads)
+        self.visuals = dict(zip(self.VISUAL_NAMES, (real, *outs)))
+        return (losses, *outs)
+
+    def optimize_parameters_accum(self, crop, n: int, draws):
+        """One ``--grad_accum n`` training step (``accumulate``, then one
+        Adam update on the mean gradients): (losses, *outs); the last crop's
+        real and outputs are kept as the visuals."""
+        losses, real, *outs, g_grads, d_grads = self.accumulate(crop, n, draws)
+        self.apply_gradients(g_grads, d_grads)
+        self.visuals = dict(zip(self.VISUAL_NAMES, (real, *outs)))
+        return (losses, *outs)

@@ -17,7 +17,7 @@ import torch
 
 from ..nn import generators
 from ..nn.losses import gan_loss
-from ..ops.sampling import random_projection, random_slice
+from ..ops.sampling import all_slices, random_projection, random_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +66,12 @@ def probe_slice(vol, idx: int, axis: int, d_apply):
 def probe_proj(vol, start: int, depth: int, axis: int, d_apply):
     """D on a window MIP (apollo_model.py:316-320)."""
     return d_apply(random_projection(vol, start, depth, axis))
+
+
+def probe_all_slices(vol, axis: int, d_apply):
+    """D on every slice along ``axis``, batched (Athena's probe,
+    gan_common.py:44-47 of the JAX package)."""
+    return d_apply(all_slices(vol, axis))
 
 
 def sample_projection_depth(cfg: GanStepConfig, generator: torch.Generator) -> int:

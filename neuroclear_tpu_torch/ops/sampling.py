@@ -1,4 +1,4 @@
-"""Slice and MIP probes of 5-D volumes, the port of
+"""Slice, MIP and all-slices probes of 5-D volumes, the port of
 ``neuroclear_tpu/ops/sampling.py`` with the random index or window start
 passed in (the JAX package draws it from a PRNG key inside; the port's step
 takes the draws as an input, so a test can hand it the JAX draws).
@@ -23,3 +23,12 @@ def random_projection(vol: torch.Tensor, start: int, depth: int, axis: int) -> t
     ``axis`` -> (N, h, w, C); start in [0, n - depth).  ``torch.amax``
     splits the gradient evenly among tied maxima, as JAX's max does."""
     return torch.amax(vol.narrow(axis + 1, start, depth), dim=axis + 1)
+
+
+def all_slices(vol: torch.Tensor, axis: int) -> torch.Tensor:
+    """Every slice along ``axis`` as the batch: (N, Z, Y, X, C) ->
+    (N * n, h, w, C), slice-major within each volume (``all_slices`` of the
+    JAX package, Athena's per-slice loop as one batched 2D conv).  A
+    contiguous copy for axes 1 and 2; a view for axis 0."""
+    v = torch.movedim(vol, axis + 1, 1)
+    return v.reshape((-1,) + tuple(v.shape[2:])).contiguous()

@@ -21,7 +21,7 @@ from . import add_gpu_ids, device_of, refuse_other_values
 from . import print_options as _print_options
 
 # value flags whose other values select paths the port does not have
-PORTED_VALUES = {"netG": ("unet_deconv",), "dataset_mode": ("diceImage",),
+PORTED_VALUES = {"netG": ("unet_deconv",), "dataset_mode": ("diceImage", "simulationcrop"),
                  "image_dimension": (3,), "norm": ("instance",), "ngf": (64,)}
 
 
@@ -102,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "line parses")
     p.add_argument("--num_test", type=int, default=3000,
                    help="no effect (the JAX CLI keeps it for parity only)")
-    p.add_argument("--dataset_mode", default="diceImage")
+    p.add_argument("--dataset_mode", default="diceImage",
+                   help="diceImage, or simulationcrop: the fixed 700^3 crop at (136, 104, 120) "
+                        "of the volume")
     p.add_argument("--image_dimension", type=int, default=3)
     p.add_argument("--preprocess", default="none",
                    help="transform chain of the per-cube loader (not used by the fused path)")

@@ -1,8 +1,11 @@
-"""Options of the port's single-volume trainer: the flags of the JAX
-package's ``options/base_options.py`` and ``options/train_options.py`` that
-its single-volume trainer takes, under the same names and defaults, plus
-``--device``.  The JAX options modules cannot be reused: they import the
-JAX model and dataset registries.
+"""Options of the port's two trainers (``train_onecube`` and the epoch
+trainer ``train``): the flags of the JAX package's
+``options/base_options.py`` and ``options/train_options.py`` that they
+take, under the same names and defaults, plus ``--device``; each model's own
+options come through the registry's option setter
+(``models.get_option_setter``), as ``BaseOptions.gather_options`` adds
+them.  The JAX options modules cannot be reused: they import the JAX model
+and dataset registries.
 
 The defaults are the JAX CLI's (``--precision float32``, ``--seed`` None:
 a fresh seed per run, drawn from ``os.urandom`` and written to
@@ -21,6 +24,7 @@ import argparse
 import datetime
 import os
 
+from .. import models
 from ..data.singlevolume_dataset import check_preprocess
 from ..utils.weights import INIT_TYPES
 from . import ROADMAP, add_gpu_ids, device_of, refuse_other_values
@@ -29,12 +33,21 @@ from . import print_options as _print_options
 NOT_PORTED = f"is not ported yet {ROADMAP}"
 # value flags the production nets fix: one channel in and out, 64 filters
 PORTED_VALUES = {"input_nc": (1,), "output_nc": (1,), "ngf": (64,), "ndf": (64,),
-                 "netD": ("basic",), "norm": ("instance",)}
+                 "netG": ("unet_deconv",), "netD": ("basic",), "norm": ("instance",)}
 
 
-def build_parser() -> argparse.ArgumentParser:
+def build_parser(argv=None) -> argparse.ArgumentParser:
+    """The trainers' parser with the options of the model that ``argv``'s
+    ``--model`` names (Apollo's without it), added through the registry's
+    option setter as ``BaseOptions.gather_options`` adds them."""
+    p = base_parser()
+    known, _ = p.parse_known_args(["--dataroot", "", *(argv or [])])
+    return models.get_option_setter(known.model)(p)
+
+
+def base_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Single-volume Apollo trainer (the port of train_onecube.py).",
+        description="The trainers of the port (train_onecube.py and train.py).",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     # data, names and checkpoints
     p.add_argument("--dataroot", required=True,
@@ -50,10 +63,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default="random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel")
     p.add_argument("--crop_size", type=int, nargs=3, default=[108, 108, 108])
     p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--serial_batches", action="store_true",
+                   help="the epoch trainer takes the items in order (else shuffled)")
+    p.add_argument("--max_dataset_size", type=int, default=float("inf"),
+                   help="the epoch trainer takes at most this many items per epoch")
     # the model
     p.add_argument("--model", default="axial_to_lateral_gan_apollo")
     p.add_argument("--netG", default="unet_deconv")
-    p.add_argument("--netG_B", default="deep_linear_gen")
     p.add_argument("--netD", default="basic")
     p.add_argument("--input_nc", type=int, default=1)
     p.add_argument("--output_nc", type=int, default=1)
@@ -69,11 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_dropout", action="store_true",
                    help="no effect: these generators have no dropout; taken so that a JAX "
                         "command line parses")
-    p.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
-    p.add_argument("--lambda_A", type=float, default=10.0)
-    p.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1])
-    p.add_argument("--randomize_projection_depth", action="store_true")
-    p.add_argument("--projection_depth", type=int, default=10)
     p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype; parameters and Adam stay float32")
     p.add_argument("--remat", action="store_true",
@@ -121,6 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--update_html_freq", type=int, default=1000,
                    help="iterations between refreshes of web/index.html")
     p.add_argument("--save_latest_freq", type=int, default=500)
+    p.add_argument("--save_epoch_freq", type=int, default=10,
+                   help="epochs between checkpoints of the epoch trainer")
     p.add_argument("--save_by_iter", action="store_true",
                    help="name checkpoints iter_<N> instead of overwriting 'latest'")
     p.add_argument("--nan_check", action="store_true",
@@ -133,8 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace (Chrome JSON) of the hot loop here")
     p.add_argument("--num_threads", type=int, default=8,
-                   help="no effect: the crops are cut on the device; taken so that a JAX "
-                        "command line parses")
+                   help="the epoch trainer's loader prefetches on a thread when > 0; no effect "
+                        "on train_onecube, whose crops are cut on the device")
     p.add_argument("--seed", type=int, default=None,
                    help="seeds the weights, the crops and the probe draws (a fresh one from "
                         "os.urandom when omitted)")
@@ -142,14 +155,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_options(opt) -> None:
-    """Raise NotImplementedError for every option whose path is not ported."""
+def check_options(opt, dataset_modes=("singlevolume",), check_preprocess=check_preprocess) -> None:
+    """Raise NotImplementedError for every option whose path is not ported;
+    ``dataset_modes`` and ``check_preprocess``: the datasets and the
+    preprocess checker of the calling trainer (train_onecube's device
+    sampler by default)."""
     refused = [
-        (opt.model != "axial_to_lateral_gan_apollo", f"--model {opt.model}"),
-        (opt.dataset_mode != "singlevolume", f"--dataset_mode {opt.dataset_mode}"),
+        (opt.dataset_mode not in dataset_modes, f"--dataset_mode {opt.dataset_mode}"),
         (opt.batch_size != 1, f"--batch_size {opt.batch_size} (--grad_accum takes its crops "
                               "one at a time, with --batch_size 1, as in JAX)"),
         (opt.fused_accum, "--fused_accum (item 1)"),
+        (getattr(opt, "netG_B", "deep_linear_gen") != "deep_linear_gen",
+         f"--netG_B {getattr(opt, 'netG_B', None)}"),
     ]
     for bad, what in refused:
         if bad:
@@ -161,13 +178,13 @@ def check_options(opt) -> None:
     check_preprocess(opt.preprocess)
 
 
-def parse(argv=None):
+def parse(argv=None, dataset_modes=("singlevolume",), check_preprocess=check_preprocess):
     """Parse and check; with ``--add_date`` (and not ``--continue_train``)
     the name gets its date prefix, as ``BaseOptions.parse`` gives it.
     Without ``--seed`` a seed is drawn from ``os.urandom`` (as
     ``BaseModel.__init__`` of the JAX package draws it) and printed."""
-    opt = build_parser().parse_args(argv)
-    check_options(opt)
+    opt = build_parser(argv).parse_args(argv)
+    check_options(opt, dataset_modes, check_preprocess)
     if opt.seed is None:
         opt.seed = int.from_bytes(os.urandom(4), "little")
         print(f"--seed not given: drew seed {opt.seed}", flush=True)
@@ -179,5 +196,5 @@ def parse(argv=None):
 def print_options(opt) -> None:
     """Print the options and write them to
     ``<checkpoints_dir>/<name>/train_opt.txt``."""
-    _print_options(opt, build_parser(), os.path.join(opt.checkpoints_dir, opt.name,
-                                                     "train_opt.txt"))
+    _print_options(opt, build_parser(["--model", opt.model]),
+                   os.path.join(opt.checkpoints_dir, opt.name, "train_opt.txt"))

@@ -33,8 +33,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .data import create_dataset
-from .data.diceImage_dataset import DiceImageDataSet
+from .data import create_dataset, find_dataset_using_name
 from .data.image_folder import make_dataset
 from .models.test_model import TestModel
 from .options import device_of, test_options
@@ -86,7 +85,7 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    dataset = DiceImageDataSet(opt)
+    dataset = find_dataset_using_name(opt.dataset_mode)(opt)
     print("original dataset_shape: " + str(dataset.size_original()), flush=True)
     model = TestModel(opt, device)
     model.setup(opt)

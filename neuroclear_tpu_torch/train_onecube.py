@@ -1,4 +1,4 @@
-"""Single-volume Apollo trainer on the card: the port of ``train_onecube.py``.
+"""Single-volume GAN trainer on the card: the port of ``train_onecube.py``.
 
 The production command (the JAX package's ``train_onecube.py`` example) runs
 unchanged:
@@ -19,18 +19,21 @@ JAX CLI does; the JAX study's commands (``scripts/run_quality_study.sh``)
 add ``--precision bfloat16 --remat --seed 0`` and, for its ga8 run,
 ``--grad_accum 8``.  It reads the volume (the first TIFF or ``.npy`` in
 ``--dataroot``), keeps it on the device, and for each iteration draws an
-augmented crop (rotation, offsets and flips), takes one Apollo step
-(models/axial_to_lateral_gan_apollo_model.py) at the schedule's learning
+augmented crop (rotation, offsets and flips), takes one step of the model
+at the schedule's learning
 rate, and steps the schedule.  With ``--grad_accum N`` an iteration draws
 the N crops' geometry, then the step's probe draws, and cuts each crop just
 before its micro-step (the JAX package's ``per_crop_sampler``; its
 host-window sampler and the environment switches ``NEUROCLEAR_HOST_WINDOW``
 and ``NEUROCLEAR_ACCUM_DEVICE_VOL`` are not ported: the volume stays on the
-card).  Every ``--print_freq``
-iterations it reads the eleven losses back (the one device sync of the
+card).  The model comes from the registry (``models.create_model``):
+Apollo, Athena (``--model axial_to_lateral_gan_athena``, the JAX study's
+``--conversion_plane yz xy`` command) or Dryops, each drawing its own probes
+from the run's generator (Athena draws none).  Every ``--print_freq``
+iterations it reads the model's losses back (the one device sync of the
 loop), prints them and appends them to ``loss_log.txt``; every
 ``--save_latest_freq`` iterations and at ``--max_iters`` it writes
-``{suffix}_net_{NAME}.npz`` for the six nets and ``{suffix}_optim.npz`` in
+``{suffix}_net_{NAME}.npz`` for each of the model's nets and ``{suffix}_optim.npz`` in
 the JAX package's formats under ``<checkpoints_dir>/<name>/``, with TIFF
 snapshots of the visuals (not with ``--no_html``), and every
 ``--update_html_freq`` iterations refreshes ``web/index.html`` with PNG
@@ -38,8 +41,8 @@ thumbnails of them.  The iteration count on resume follows the JAX trainer
 (``--load_iter N`` resumes at N + 1, so the names it writes are the JAX
 trainer's).  ``--profile_dir`` writes a ``torch.profiler`` trace of the
 loop.  It runs on the card unless ``--device cpu`` (or ``--gpu_ids -1``) is
-given.  ``--fused_accum`` and models other than Apollo are not ported yet
-(ROADMAP.md).
+given.  ``--fused_accum`` and the models of the zoo beyond these three are
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,24 +56,11 @@ import time
 import torch
 
 from . import resolve_device
-from .data.image_folder import make_dataset
-from .data.singlevolume_dataset import SingleVolumeDataset
-from .models.axial_to_lateral_gan_apollo_model import LOSS_NAMES, ApolloModel
+from .data.singlevolume_dataset import SingleVolumeDataset, volume_path
+from .models import create_model
 from .options import device_of, train_options
 from .utils import tiffio
 from .utils.visualizer import Visualizer
-
-
-def volume_path(dataroot: str) -> str:
-    """The training volume: ``dataroot`` itself if it is a file, else the
-    first image file under it in sorted order (``make_dataset(dataroot,
-    1)[0]``, as the JAX dataset picks it)."""
-    if os.path.isfile(dataroot):
-        return dataroot
-    found = make_dataset(dataroot, 1)
-    if not found:
-        raise FileNotFoundError(f"{dataroot} holds no volume (TIFF or .npy)")
-    return found[0]
 
 
 class Watchdog:
@@ -134,7 +124,7 @@ def setup(opt):
           f"(rotation {dataset.rotate}); seed {opt.seed}", flush=True)
     if opt.grad_accum > 1:
         print(f"gradient accumulation: {opt.grad_accum} crops per optimizer step", flush=True)
-    model = ApolloModel(opt, device)
+    model = create_model(opt, device)
     model.init_weights(opt.seed, opt.init_type, opt.init_gain)
     model.setup(opt)
     return device, dataset, model
@@ -181,7 +171,8 @@ def main(argv=None) -> dict:
     watchdog = Watchdog(opt.watchdog_secs) if opt.watchdog_secs > 0 else None
 
     # with --max_iters, each step's losses and end mark, kept without a sync
-    log = torch.empty((opt.max_iters, len(LOSS_NAMES)), device=device)
+    names = model.loss_names
+    log = torch.empty((opt.max_iters, len(names)), device=device)
     marks = [_mark(device)]
     paths, snapshots, t_data = [], [], 0.0
     prof = _profiler(opt, device)
@@ -199,11 +190,11 @@ def main(argv=None) -> dict:
             t_data = iter_start_time - iter_data_time
         total_iters += opt.batch_size
         if opt.grad_accum > 1:
-            step_losses, _, _ = model.optimize_parameters_accum(
+            step_losses, *_ = model.optimize_parameters_accum(
                 lambda i: dataset.crop(*geometry[i]), opt.grad_accum, draws)
         else:
-            step_losses, _, _ = model.optimize_parameters(real, draws)
-        values = torch.stack([step_losses[n] for n in LOSS_NAMES])
+            step_losses, *_ = model.optimize_parameters(real, draws)
+        values = torch.stack([step_losses[n] for n in names])
         if opt.max_iters:
             log[total_iters - loaded_iter - 1] = values
             marks.append(_mark(device))
@@ -215,7 +206,7 @@ def main(argv=None) -> dict:
             print("----------------------------------")
             print(f"exp name: {opt.name}, device: {device}")
             print("----------------------------------")
-            losses = dict(zip(LOSS_NAMES, values.tolist()))  # the device sync
+            losses = dict(zip(names, values.tolist()))  # the device sync
             if opt.nan_check and not all(math.isfinite(v) for v in losses.values()):
                 print(f"NaN/Inf loss detected at iter {total_iters}: {losses}", flush=True)
                 model.save_networks("nan_debug")
@@ -253,7 +244,7 @@ def main(argv=None) -> dict:
     if watchdog:
         watchdog.stop()
     visualizer.close()
-    losses = [dict(zip(LOSS_NAMES, row)) for row in log.tolist()]
+    losses = [dict(zip(names, row)) for row in log.tolist()]
     secs = [_seconds(a, b) for a, b in zip(marks, marks[1:])]
     return {"losses": losses, "step_seconds": secs, "checkpoints": paths,
             "visuals": snapshots, "device": device, "model": model,

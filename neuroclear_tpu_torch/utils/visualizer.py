@@ -1,6 +1,7 @@
 """The port of ``neuroclear_tpu/utils/visualizer.py``.
 
-``Visualizer`` is the single-volume trainer's reporting: console loss lines
+``Visualizer`` is the trainers' reporting, for any model's losses and
+visuals: console loss lines
 and ``loss_log.txt`` in the JAX package's format, TIFF snapshots of the
 visuals (through the port's own codec, ``utils/tiffio.py``) and an HTML page
 of their middle slices as PNG (``web/index.html``, newest iteration first,
@@ -151,11 +152,16 @@ class Visualizer:
             page.add_images(ims, labels, ims, width=256)
         page.save()
 
-    def plot_current_losses(self, plot_count, losses):
+    def reset(self):
+        """The start of an epoch (the JAX visualizer's flag; nothing to clear
+        here)."""
+
+    def plot_current_losses(self, plot_count, losses, is_epoch=False):
         if self.tb_writer is None:
             return
+        tag = "train_by_epoch/" if is_epoch else "train_by_epoch_progress/"
         for label, loss in losses.items():
-            self.tb_writer.add_scalar("train_by_epoch_progress/" + label, loss, plot_count)
+            self.tb_writer.add_scalar(tag + label, loss, plot_count)
 
     def print_current_losses(self, epoch, epoch_progress, losses, t_comp, t_data):
         message = ("(epoch: %d, epoch_progress: %d%%, iter time: %.3f, "

@@ -134,7 +134,7 @@ def test_transform_matches_jax(dtype, preprocess):
 @pytest.mark.parametrize("token", ["random3Drotate", "randomcrop", "randomflip",
                                    "random90rotate"])
 def test_transform_refuses_the_random_tokens(token):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_transform(_opt(preprocess=f"{token}_addColorChannel"))
 
 
@@ -177,7 +177,9 @@ def test_loader_reads_neither_order_nor_thread_options(tmp_path, serial, threads
 def test_registry_refuses_unported_datasets():
     assert port_data.find_dataset_using_name("diceImage").__name__ == "DiceImageDataSet"
     assert port_data.find_dataset_using_name("singlevolume").__name__ == "SingleVolumeDataset"
-    for name in ("cube", "simulationcrop", "braincube"):
+    assert port_data.find_dataset_using_name("cube").__name__ == "CubeDataset"
+    assert port_data.find_dataset_using_name("simulationcrop").__name__ == "SimulationCropDataSet"
+    for name in ("braincube", "unaligned", "aligned"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_data.find_dataset_using_name(name)
 

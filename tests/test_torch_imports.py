@@ -1,8 +1,8 @@
 """The port stands alone: ``neuroclear_tpu_torch`` (every module),
 ``chip_smoke`` and ``chip_smoke_faults`` import with ``jax``, ``PIL``,
-``tifffile`` and ``neuroclear_tpu`` blocked, as on a torch-only machine with
-the card; and the entry points refuse to run when CUDA is absent and the CPU
-was not asked for."""
+``tifffile``, ``cv2`` and ``neuroclear_tpu`` blocked, as on a torch-only
+machine with the card; and the entry points refuse to run when CUDA is
+absent and the CPU was not asked for."""
 
 import os
 import subprocess
@@ -16,7 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKER = """
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "PIL", "tifffile", "neuroclear_tpu")
+BLOCKED = ("jax", "jaxlib", "PIL", "tifffile", "cv2", "neuroclear_tpu")
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -50,8 +50,11 @@ def test_port_and_chip_smoke_import_without_jax():
     """)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 39, proc.stdout
-    for name in ("ops.rotation", "nn.schedulers", "options.train_options", "utils.visualizer"):
+    assert n >= 45, proc.stdout
+    for name in ("ops.rotation", "nn.schedulers", "options.train_options", "utils.visualizer",
+                 "train", "data.warp", "data.cube_dataset", "data.simulationcrop_dataset",
+                 "models.axial_to_lateral_gan_athena_model",
+                 "models.axial_to_lateral_gan_dryops_model"):
         assert f"neuroclear_tpu_torch.{name}" in proc.stdout.split(), name
 
 
@@ -74,6 +77,26 @@ def test_infer_main_refuses_without_cuda(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "refused"
     assert not any(tmp_path.iterdir())  # nothing was read or written
+
+
+def test_epoch_trainer_refuses_without_cuda(tmp_path):
+    """``train.main`` refuses before it reads or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal needs a machine without one")
+    proc = _run(f"""
+        from neuroclear_tpu_torch import train
+        try:
+            train.main(["--dataroot", {str(tmp_path / "none")!r}, "--dataset_mode", "cube", "--seed", "0",
+                        "--checkpoints_dir", {str(tmp_path)!r}])
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+            print("refused")
+        else:
+            raise SystemExit("main ran without a CUDA device")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "refused"
+    assert not any(tmp_path.iterdir())
 
 
 def test_chip_smoke_exits_nonzero_without_cuda():

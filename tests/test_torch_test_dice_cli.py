@@ -285,3 +285,65 @@ def test_port_cli_parses_the_jax_flags(tmp_path, flags, device):
     assert opt.device == torch.device("cpu")
     dump = _options_dump(tmp_path / "res" / "e" / "test_opt.txt")
     assert dump[flags[0][2:]] == (flags[1] if len(flags) > 1 else "True")
+
+
+TRAINED_G_A = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "study_state", "apollo148s4", "iter_11000_net_G_A.npz")
+
+
+def test_trained_generator_matches_jax_cli(tmp_path, monkeypatch):
+    """The JAX study's trained Apollo G_A (iteration 11000) through both
+    CLIs on a 48^3 volume (dice 32, overlap 8: eight 40^3 tiles), f32: the
+    output within GEN_LSB, the bound set at random weights."""
+    rng = np.random.default_rng(8)
+    shape = (48, 48, 48)
+    z, y, x = np.meshgrid(*(np.arange(n, dtype=np.float64) for n in shape), indexing="ij")
+    field = 0.4 + 0.25 * np.sin(z / 5.0) * np.cos(y / 6.0) * np.sin(x / 4.0 + 1.0)
+    vol = (np.clip(field + rng.normal(0, 0.05, shape), 0, 1) * 65535).astype(np.uint16)
+    for sub in ("input", "gt"):
+        os.makedirs(tmp_path / sub)
+    jax_tiffio.imwrite(str(tmp_path / "input" / "vol.tif"), vol)
+    jax_tiffio.imwrite(str(tmp_path / "gt" / "vol.tif"), (np.clip(field, 0, 1) * 65535)
+                       .astype(np.uint16))
+    os.makedirs(tmp_path / "ck" / "exp")
+    os.symlink(TRAINED_G_A, tmp_path / "ck" / "exp" / "iter_5_net_G_A.npz")
+    extra = ["--dice_size", "32", "32", "32", "--overlap", "8"]
+    _run_jax_cli(_args(tmp_path, str(tmp_path / "ck"), tmp_path / "jax", "uint16", False,
+                       extra), monkeypatch)
+    res = port_cli.main(_args(tmp_path, str(tmp_path / "ck"), tmp_path / "port", "uint16",
+                              False, extra) + ["--device", "cpu"])
+    web = os.path.join("exp", "test_latest_iter5")
+    ref = _read_outputs(str(tmp_path / "jax" / web))[
+        os.path.join("volumes", "output_volume_xy-view_iter-5.tif")]
+    assert res["fake"].shape == shape and res["fake"].std() > 0
+    d = np.abs(res["fake"].astype(np.int64) - ref.astype(np.int64))
+    assert d.max() <= GEN_LSB, d.max()
+
+
+def test_simulationcrop_matches_jax_cli(tmp_path, monkeypatch, checkpoint):
+    """``--dataset_mode simulationcrop``: the fixed crop before dicing, as the
+    JAX CLI cuts it (both datasets' crop moved to fit a small volume; the
+    shipped 700^3 at (136, 104, 120) is checked by
+    tests/test_torch_host_chain.py)."""
+    from neuroclear_tpu.data.simulationcrop_dataset import SimulationCropDataSet as JaxSimCrop
+    from neuroclear_tpu_torch.data.simulationcrop_dataset import SimulationCropDataSet
+
+    for cls in (JaxSimCrop, SimulationCropDataSet):
+        monkeypatch.setattr(cls, "CROP_OFFSET", (2, 1, 3))
+        monkeypatch.setattr(cls, "CROP_SIZE", 12)
+    rng = np.random.default_rng(9)
+    for sub in ("input", "gt"):
+        os.makedirs(tmp_path / sub)
+    jax_tiffio.imwrite(str(tmp_path / "input" / "vol.tif"),
+                       rng.integers(20000, 40000, (16, 15, 17)).astype(np.uint16))
+    jax_tiffio.imwrite(str(tmp_path / "gt" / "vol.tif"),
+                       rng.integers(20000, 40000, (12, 12, 12)).astype(np.uint16))
+    args = [a if a != "diceImage" else "simulationcrop"
+            for a in _args(tmp_path, checkpoint, tmp_path / "jax", "uint16", False)]
+    _run_jax_cli(args, monkeypatch)
+    res = port_cli.main([a if a != str(tmp_path / "jax") else str(tmp_path / "port")
+                         for a in args] + ["--device", "cpu"])
+    ref = _read_outputs(str(tmp_path / "jax" / "exp" / "test_latest_iter5"))[
+        os.path.join("volumes", "output_volume_xy-view_iter-5.tif")]
+    assert res["fake"].shape == ref.shape == (12, 12, 12)
+    assert np.abs(res["fake"].astype(np.int64) - ref.astype(np.int64)).max() <= GEN_LSB

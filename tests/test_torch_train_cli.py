@@ -132,7 +132,7 @@ def test_crop_draws_cover_the_inclusive_range():
 
 @pytest.mark.parametrize("extra", [
     ["--fused_accum"], ["--grad_accum", "2", "--batch_size", "2"],
-    ["--model", "axial_to_lateral_gan_athena"], ["--netD", "n_layers"],
+    ["--netG", "unet_vanilla"], ["--netD", "n_layers"],
     ["--preprocess",
      "random3Drotate_random90rotate_randomcrop_randomflip_addColorChannel_addBatchChannel"]])
 def test_options_not_ported_are_refused(tmp_path, extra):
