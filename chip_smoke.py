@@ -109,7 +109,27 @@ Phases, each printed with its name, seconds and result:
   14. trained G_A: the slice's tile pipeline on the JAX study's trained
      Apollo G_A, its launches, its bf16 output against the plain versions
      in f32 and in bf16 within ``TRAINED_KP_*``;
-  15. profile (only with --profile): a warm run of the slice's tile pipeline
+  15. vanilla: Apollo's production command in bf16 with ``--netG
+     unet_vanilla`` at 112^3 (it pools three times) through
+     ``train_onecube.main`` on a synthetic 176^3 TIFF, random Kaiming
+     weights: four steps, launches exact (``VANILLA_STEP_LAUNCHES``), the
+     step median, a warm step's device time, idle share and peak memory; the
+     three-way step judged with ``VANILLA_DIRECT``; test_dice from its
+     checkpoint on the slice's volume with 144^3 tiles against the plain
+     versions in bf16 and f32 (``VANILLA_KP_*``);
+  16. batchnorm: the production flags with ``--norm batch`` at 108^3, bf16,
+     four steps, only the W-pair conv launched (``BATCHNORM_STEP_LAUNCHES``);
+     the kernel and plain models in lockstep, after each step the refresh
+     against its restated formula and the running statistics against the
+     plain model's; test_dice ``--norm batch`` from the checkpoint with and
+     without ``--eval``, each against its plain path;
+  17. zoo nets: every other ``define_G`` / ``define_D`` name at its factory
+     width (3D generators at 64^3, the ResNets at 256^2, VGG16 at 2 x 224^2,
+     the discriminators at 128 slices of 128^2), forward and backward in
+     bf16 and f32, kernels against plain, with the hand kernels each
+     launched; the spectral norm and ResNet's transposed conv against
+     restatements;
+  18. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv), three warm cubes of the per-cube
      loop (with its copies), a warm training step, a warm study step and a
      warm Athena step under torch.profiler, device time by kernel and the
@@ -151,12 +171,13 @@ from neuroclear_tpu_torch.models.axial_to_lateral_gan_athena_model import (
     MODEL_NAMES as ATHENA_MODEL_NAMES)
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_dryops_model import (
     D_NAMES as DRYOPS_D_NAMES, LOSS_NAMES as DRYOPS_LOSS_NAMES)
-from neuroclear_tpu_torch.nn.factory import define_G
+from neuroclear_tpu_torch.nn import norms
+from neuroclear_tpu_torch.nn.factory import define_D, define_G
 from neuroclear_tpu_torch.nn.losses import gan_loss, l1_loss
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.ops import build, conv3x3, inorm, rotation, wconv
 from neuroclear_tpu_torch.ops.augment import crop_draws
-from neuroclear_tpu_torch.options import train_options
+from neuroclear_tpu_torch.options import test_options, train_options
 from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
 from neuroclear_tpu_torch.utils import png, tiffio
@@ -299,6 +320,22 @@ DRYOPS_STEP_LAUNCHES = {"wconv3x3x3": 2, "wconv_dx": 2, "wconv_dw": 2, "pair_sum
                         "affine_map_act": 37, "pair_sums_gy": 37, "bwd_map": 37, "conv3x3": 0}
 DRYOPS_REMAT_STEP_LAUNCHES = {**DRYOPS_STEP_LAUNCHES, "wconv3x3x3": 4, "pair_sums": 52,
                               "affine_map_act": 52}
+# Apollo with --netG unet_vanilla: its three W-pair convs (double_conv1.conv1,
+# ex_conv1_1.conv0 and .conv1) and G_B's feat1, forward and backward; its 14
+# instance norms and the discriminators' 54, each differentiated.  With
+# --remat the net has no per-block remat and is recomputed whole (JAX's
+# jax.checkpoint fallback), as G_B is: every forward kernel of the two
+# generators runs twice (tests/test_torch_zoo_models.py counts both)
+VANILLA_STEP_LAUNCHES = {"wconv3x3x3": 4, "wconv_dx": 4, "wconv_dw": 4, "pair_sums": 68,
+                         "affine_map_act": 68, "pair_sums_gy": 68, "bwd_map": 68, "conv3x3": 0}
+VANILLA_REMAT_STEP_LAUNCHES = {**VANILLA_STEP_LAUNCHES, "wconv3x3x3": 8, "pair_sums": 82,
+                               "affine_map_act": 82}
+# The production nets under --norm batch: no instance norm anywhere, so only
+# the W-pair conv's three rows launch (the batch norm is plain PyTorch, as it
+# is plain jnp in the JAX package); the refresh pass after the step runs in
+# f32, outside the bf16-only gate
+BATCHNORM_STEP_LAUNCHES = {**STEP_LAUNCHES, "pair_sums": 0, "affine_map_act": 0,
+                           "pair_sums_gy": 0, "bwd_map": 0}
 # The production command without --precision runs in f32: the W-pair conv's
 # gate is bf16-only, so cuDNN runs every conv and the norm kernels run in f32
 F32_STEP_LAUNCHES = {**STEP_LAUNCHES, "wconv3x3x3": 0, "wconv_dx": 0, "wconv_dw": 0}
@@ -327,7 +364,7 @@ STEP_LOSS_RATIO, STEP_LOSS_REL = 2.0, 1e-2
 STEP_GRAD_RATIO, STEP_GRAD_ABS = 1.5, 0.02
 STEP_TENSOR_RATIO, STEP_TENSOR_ABS = 3.0, 0.05
 STEP_DIRECT = {"G_A": 0.6, "G_B": 0.04, "D": 0.3}
-PRE_NORM = ("double_conv", "bottom_layer", "ex_double_conv2", "ex_conv1_1", "conv1",
+PRE_NORM = ("double_conv", "bottom_layer", "ex_double_conv", "ex_conv1_1", "conv1",
             "conv2", "conv3")
 
 # Study: the JAX study's training command, scripts/run_quality_study.sh:84-93
@@ -431,6 +468,86 @@ HOST_ROT_MAX_LSB, HOST_ROT_MEAN_LSB = 1.0, 0.3
 # the worst voxel, twice the mean
 TRAINED_G_A = os.path.join(STUDY_STATE, f"iter_{STUDY_LOAD_ITER}_net_G_A.npz")
 TRAINED_KP_MAX_LSB, TRAINED_KP_MEAN_LSB = 4 * 256, 12.0
+
+# Vanilla: Apollo's production command in bf16 (TRAIN_ARGS) with --netG
+# unet_vanilla, the 3-level U-Net (64 -> 128 -> 256 -> bottom 512), at 112^3:
+# it pools three times, and 108 -> 54 -> 27 -> 13 cannot be concatenated back
+# with 27 (in JAX as in the port).  Random Kaiming weights, four steps, on a
+# synthetic 176^3 TIFF (it holds the 45-degree rotated 112^3 crop).  Then
+# test_dice from its checkpoint on the slice's 260^3 volume, 144^3 tiles
+# (dice 120, overlap 15, border_cut 12: a multiple of 8), bf16.  Cut: depth
+# (four steps).
+VANILLA_CROP, VANILLA_VOLUME, VANILLA_ITERS = 112, 176, 4
+VANILLA_ARGS = [{"unet_deconv": "unet_vanilla", str(CROP): str(VANILLA_CROP)}.get(a, a)
+                for a in TRAIN_ARGS]
+VANILLA_DICE_ARGS = ["--dice_size", "120", "120", "120", "--overlap", "15", "--border_cut",
+                     "12", "--tile_batch", "2", "--precision", "bfloat16", "--data_type",
+                     "uint16", "--netG", "unet_vanilla"]
+# The vanilla step judged by judge_step's rule; per-tensor limits against the
+# plain bf16 step set from this phase's first reading on an H100 at seed 0
+# (random weights: largest G_A 0.376, G_B 0.0032, D 0.152), at about 1.6, 3
+# and 2 times those
+VANILLA_DIRECT = {"G_A": 0.6, "G_B": 0.01, "D": 0.3}
+# test_dice --netG unet_vanilla from the four-step checkpoint, kernels against
+# the plain bf16 path: first reading on an H100 at seed 0 max 1792, mean 148.6
+# LSB (both paths ~474.5 LSB mean from f32: fourteen norms on barely trained
+# weights); limits at twice those
+VANILLA_KP_MAX_LSB, VANILLA_KP_MEAN_LSB = 14 * 256, 300.0
+# Batchnorm: Apollo's production flags in bf16 with --norm batch at 108^3 on
+# the train phase's 160^3 volume, random Kaiming weights, four steps; no
+# instance norm anywhere, so only the W-pair conv's rows launch
+# (BATCHNORM_STEP_LAUNCHES).  After each step, every running statistic of the
+# kernel model against the plain model's, run in lockstep from the same
+# weights on the same crops and draws (relative L2 over all of them; bf16
+# rounding and the kernel's sum order move the weights apart, Adam's sign-like
+# first steps amplify it), and the refresh against its formula restated here
+# (check_refresh).  Then test_dice --norm batch from the checkpoint, with and
+# without --eval, each against the plain path.  Limits to be set from the
+# first reading.
+BATCHNORM_ITERS = 4
+BATCHNORM_ARGS = [{"instance": "batch"}.get(a, a) for a in TRAIN_ARGS]
+# First reading on an H100 at seed 0: the running statistics 8.5e-4, 2.4e-3,
+# 4.5e-3 and 7.1e-3 off the plain model's after steps 1-4 (Adam's sign-like
+# steps move the two models' weights apart by ~lr a step wherever a gradient
+# entry is near zero); test_dice against the plain bf16 path max 768 / mean
+# 46.2 LSB on the tile batch's statistics (each batch of two 140^3 tiles
+# normalised by itself), 256 / 8.03 on the running ones (--eval).  Limits at
+# about four times the statistics' last reading, and two times the LSB ones
+BATCHNORM_STATS_REL = 0.03
+BATCHNORM_KP = {False: (1536, 96.0), True: (512, 16.0)}
+# The refresh restated: each batch norm's buffers after the step against
+# 0.9 x before + 0.1 x the biased statistics (float64) of the input it saw in
+# the refresh pass; f32 against float64 sums
+REFRESH_REL = 1e-5
+# Zoo nets: every define_G / define_D name no other phase runs, at its
+# factory width, forward and backward (a fixed random cotangent), the kernel
+# build and the plain build on the same weights and input, each in bf16 and
+# f32: relative L2 of the output and of all gradients (the input's and the
+# parameters') pooled.  3D generators on 64^3 (linearkernel_LK31 at 48^3:
+# its k31 conv), the ResNets at 256^2, VGG16 at 2 x 224^2, the
+# discriminators at Athena's probe shape (128 slices of 128^2).  f32, kernels
+# against plain: the output within ZOO_F32_OUT (the norm kernels sum in
+# another order, ~1e-7 relative per norm), the gradients within ZOO_F32_GRAD
+# (a ReLU mask flips where the outputs differ by that much, and moves the
+# gradients below it: ResNet-6's 1.4e-3 in the first reading on an H100).
+# bf16: the kernels' output and gradients against the plain f32 ones no
+# worse than the plain bf16 build's, by the step check's rule
+# (STEP_GRAD_RATIO, STEP_GRAD_ABS): ResNet-6's bf16 gradients are 0.135 off
+# the plain bf16 ones, as two bf16 runs that round in other places are.
+ZOO_G = [("unet_twoouts", (1, 64, 64, 64, 1)), ("linearkernel", (1, 64, 64, 64, 1)),
+         ("linearkernel_double", (1, 64, 64, 64, 1)), ("linearkernel_LK31", (1, 48, 48, 48, 1)),
+         ("linearkernel_NC", (1, 64, 64, 64, 1)), ("fixed_kernel", (1, 64, 64, 64, 1)),
+         ("resnet_6blocks", (1, 256, 256, 1)), ("resnet_9blocks", (1, 256, 256, 1)),
+         ("VGG", (2, 224, 224, 1))]
+ZOO_D = ["basic_SN", "n_layers", "n_layers_SN", "pixel", "kernelGAN"]
+ZOO_D_SHAPE = (ATHENA_CROP, ATHENA_CROP, ATHENA_CROP, 1)
+ZOO_F32_OUT, ZOO_F32_GRAD = 1e-4, 1e-2
+# The spectral norm restated (three power iterations from the stored u, in
+# float64) against Conv.spectral_weight; u must not move
+SPECTRAL_REL = 1e-5
+# ResnetGenerator's k3 stride-2 transposed convs restated as the scatter of
+# nn.ConvTranspose2d(padding=1, output_padding=1), f32 sums
+TRANSPOSE_REL = 1e-5
 
 T_START = time.monotonic()
 
@@ -890,14 +1007,19 @@ def lsb_stats(a: np.ndarray, ref: np.ndarray) -> dict:
             "p999_lsb": float(np.quantile(d, 0.999))}
 
 
-def plain_outputs(flat: dict, vol: np.ndarray, dev, precisions) -> tuple[dict, dict]:
-    """The slice's tile pipeline on the plain versions, on the card: {precision:
-    int64 output} and {precision: seconds}; no kernel may launch."""
-    vp = pad_for_dicing(vol, 120, 15)
-    grid = DiceGrid(vp.shape, 120, 15, 10)
-    plain = define_G(1, 1, 64, "unet_deconv", plain=True)
+def plain_outputs(flat: dict, vol: np.ndarray, dev, precisions, netG: str = "unet_deconv",
+                  norm: str = "instance", border: int = 10, eval_stats: bool = False,
+                  roi: int = 120, overlap: int = 15) -> tuple[dict, dict]:
+    """The slice's tile pipeline (dice ``roi``, ``overlap``, ``border``) with
+    ``netG``/``norm`` on the plain versions, on the card, batch norms on
+    their running statistics when ``eval_stats``: {precision: int64 output}
+    and {precision: seconds}; no kernel may launch."""
+    vp = pad_for_dicing(vol, roi, overlap)
+    grid = DiceGrid(vp.shape, roi, overlap, border)
+    plain = define_G(1, 1, 64, netG, norm, plain=True)
     plain.load_state_dict(params_from_numpy(flat, plain))
-    plain.to(dev).eval()
+    plain.to(dev)
+    norms.set_eval(plain, eval_stats)
     outs, secs = {}, {}
     before = kernel_ops.launches()
     for precision in precisions:
@@ -1934,24 +2056,8 @@ def run_dryops(seed: int, dev, tmp: str) -> dict:
     ``judge_step`` at the random-weight limits; the accumulation of two
     crops under one set of draws against the mean of their gradients."""
     vol = synthetic_volume(seed + 12, TRAIN_VOLUME)
-    data = os.path.join(tmp, "dryops_data")
-    tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
-    argv = ["--dataroot", data, "--checkpoints_dir", os.path.join(tmp, "dryops_ckpt"),
-            "--name", "dryops", *DRYOPS_ARGS, "--max_iters", str(DRYOPS_ITERS), "--seed",
-            str(seed)]
-    kernel_ops.reset_launches()
-    res = train_onecube.main(argv)
-    launches = kernel_ops.launches()
-    expected = {k: DRYOPS_ITERS * v for k, v in DRYOPS_STEP_LAUNCHES.items()}
-    log(f"  launches over {DRYOPS_ITERS} steps {launches}, expected {expected}")
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
-    if not all(math.isfinite(v) for step in res["losses"] for v in step.values()):
-        raise AssertionError(f"a Dryops loss is not finite: {res['losses']}")
-    step_ms = _median_ms(res["step_seconds"])
-    log(f"  step ms ({CROP}^3, bf16): first {1e3 * res['step_seconds'][0]:.1f}, then "
-        + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"][1:])
-        + f"; median {step_ms:.1f} ms")
+    res = train_phase("dryops", DRYOPS_ARGS, DRYOPS_ITERS, DRYOPS_STEP_LAUNCHES, vol, tmp, seed)
+    launches, step_ms = res["launches"], res["step_ms"]
     del res
 
     make, dataset, geometry, gen = dryops_inputs(vol, dev, seed)
@@ -2055,45 +2161,10 @@ def run_trained_dice(seed: int, dev, tmp: str) -> dict:
     """The slice's tile pipeline (``test_dice.main``, its flags and volume)
     on the JAX study's trained Apollo G_A: launches as the slice's, the
     output against the plain versions in f32 and in bf16 within TRAINED_*."""
-    vol = synthetic_volume(seed)
-    os.makedirs(os.path.join(tmp, "data"))
-    np.save(os.path.join(tmp, "data", "volume.npy"), vol)
-    os.makedirs(os.path.join(tmp, "ckpt", "trained"))
-    os.symlink(TRAINED_G_A, os.path.join(tmp, "ckpt", "trained", "iter_1_net_G_A.npz"))
-    flat = load_npz(TRAINED_G_A)
-    grid = DiceGrid(pad_for_dicing(vol, 120, 15).shape, 120, 15, 10)
-    batches = grid.z_steps * -(-(grid.y_steps * grid.x_steps) // 2)
-    expected = {name: 0 for name in kernel_ops.KERNELS}
-    expected.update({"wconv3x3x3": 2 * batches, "pair_sums": 10 * batches,
-                     "affine_map_act": 10 * batches})
-    kernel_ops.reset_launches()
-    res = test_dice.main(["--dataroot", os.path.join(tmp, "data"), "--name", "trained",
-                          "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--load_iter", "1",
-                          "--model_suffix", "_A", "--results_dir", os.path.join(tmp, "results"),
-                          *SLICE_ARGS])
-    launches = kernel_ops.launches()
-    log(f"  launches {launches}, expected {expected}")
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
-    out = res["fake"]
-    outs, _ = plain_outputs(flat, vol, dev, ("bfloat16", "float32"))
-    ref = outs["float32"]
-    p_err, k_err = lsb_stats(outs["bfloat16"], ref), lsb_stats(out, ref)
-    kp = np.abs(out.astype(np.int64) - outs["bfloat16"])
-    log(f"  trained G_A against the f32 plain output: kernels (bf16) {k_err}; plain versions "
-        f"(bf16) {p_err}; kernels vs plain (bf16): max {int(kp.max())} LSB, mean "
-        f"{float(kp.mean()):.3f} LSB, {float((kp > 0).mean()):.4f} of voxels differ (limits "
-        f"{TRAINED_KP_MAX_LSB}, {TRAINED_KP_MEAN_LSB}); output mean {out.mean():.1f} std "
-        f"{out.std():.1f}")
-    if (k_err["mean_lsb"] > SLICE_MEAN_RATIO * p_err["mean_lsb"]
-            or k_err["max_lsb"] > p_err["max_lsb"] + SLICE_MAX_EXTRA_LSB):
-        raise AssertionError(f"trained G_A: kernels less accurate than the plain path: {k_err} "
-                             f"vs {p_err}")
-    if kp.max() > TRAINED_KP_MAX_LSB or kp.mean() > TRAINED_KP_MEAN_LSB:
-        raise AssertionError(f"trained G_A: kernels off the plain path: max {kp.max()}, mean "
-                             f"{kp.mean()}")
-    return {"launches": launches, "k_err": k_err, "p_err": p_err,
-            "kp_max": int(kp.max()), "kp_mean": float(kp.mean())}
+    return dice_against_plain("trained G_A", TRAINED_G_A, synthetic_volume(seed), tmp, dev,
+                              SLICE_ARGS, {"wconv3x3x3": 2, "pair_sums": 10,
+                                           "affine_map_act": 10},
+                              (TRAINED_KP_MAX_LSB, TRAINED_KP_MEAN_LSB))
 
 
 def profile_athena_step(dev, seed: int) -> None:
@@ -2160,8 +2231,9 @@ def profile_legacy(dev, seed: int, cubes: int = 3) -> None:
     visuals back to the host, a sync per cube, as ``run_legacy`` does) on
     the host clock, then under torch.profiler: device time by kernel with
     the copies, and the device's idle share."""
-    model = test_dice.TestModel(argparse.Namespace(checkpoints_dir=".", name="smoke",
-                                                   model_suffix="_A"), dev)
+    opt = test_options.build_parser().parse_args(["--dataroot", "unused", "--name", "smoke",
+                                                  "--model_suffix", "_A"])
+    model = test_dice.TestModel(opt, dev)
     model.netG.load_state_dict(params_from_numpy(init_flat(model.netG, seed=seed), model.netG))
     model.netG.to(dev)
     rng = np.random.default_rng(seed)
@@ -2302,6 +2374,418 @@ def profile_study_step(dev, seed: int) -> None:
     del model
 
 
+def profile_model_step(model, sample, crop: int, gen, dev) -> dict:
+    """One warm step of ``model`` on ``sample(gen)`` timed on the host clock
+    (synchronised), its peak device memory, and the same step under
+    torch.profiler: device time and the device's idle share of the wall."""
+    def step():
+        model.optimize_parameters(sample(gen), model.draw_probes((crop,) * 3, gen))
+        torch.cuda.synchronize()
+
+    step()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    log(f"  warm step wall {wall:.1f} ms; device time {busy:.1f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}); {sum(r[2] for r in rows)} device operations; "
+        f"peak device memory {peak:.3f} GiB; by kernel: "
+        + "; ".join(f"{ms:.2f} ms x{n} {key[:60]}" for key, ms, n in rows[:6]))
+    return {"wall_ms": wall, "device_ms": busy, "idle": max(0.0, 1 - busy / wall),
+            "peak_gib": peak}
+
+
+def train_phase(label: str, args: list, iters: int, table: dict, vol: np.ndarray, tmp: str,
+                seed: int) -> dict:
+    """``train_onecube.main`` with ``args`` for ``iters`` steps on ``vol``
+    (a TIFF): the launches exactly ``iters`` x ``table``, finite losses, the
+    step median.  Returns the trainer's result with "launches", "step_ms"
+    and the written G_A checkpoint ("g_a")."""
+    data = os.path.join(tmp, f"{label}_data")
+    tiffio.imwrite(os.path.join(data, "volume.tif"), vol)
+    argv = ["--dataroot", data, "--name", label, "--checkpoints_dir",
+            os.path.join(tmp, f"{label}_ckpt"), *args, "--max_iters", str(iters), "--seed",
+            str(seed)]
+    kernel_ops.reset_launches()
+    res = train_onecube.main(argv)
+    launches = kernel_ops.launches()
+    expected = {k: iters * v for k, v in table.items()}
+    log(f"  launches over {iters} steps {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    if not all(math.isfinite(v) for step in res["losses"] for v in step.values()):
+        raise AssertionError(f"a {label} loss is not finite: {res['losses']}")
+    res["launches"], res["step_ms"] = launches, _median_ms(res["step_seconds"])
+    res["g_a"] = next(p for p in res["checkpoints"] if p.endswith("_net_G_A.npz"))
+    log(f"  step ms: first {1e3 * res['step_seconds'][0]:.1f}, then "
+        + ", ".join(f"{1e3 * t:.1f}" for t in res["step_seconds"][1:])
+        + f"; median {res['step_ms']:.1f} ms")
+    return res
+
+
+def dice_against_plain(label: str, g_a: str, vol: np.ndarray, tmp: str, dev, argv: list,
+                       per_batch: dict, limits: tuple, netG="unet_deconv", norm="instance",
+                       border=10, eval_stats=False, roi=120, overlap=15) -> dict:
+    """``test_dice.main`` with ``argv`` from the checkpoint ``g_a`` on
+    ``vol`` (bf16, tile batch 2): launches exactly ``per_batch`` per tile
+    batch; the output against the same pipeline on the plain versions in
+    bf16 and f32 (``netG``/``norm``/``border``, batch norms on their running
+    statistics when ``eval_stats``): no less accurate against f32 than the
+    plain bf16 path (the slice's rule), within ``limits`` (max, mean LSB) of
+    it."""
+    d = os.path.join(tmp, label)
+    os.makedirs(os.path.join(d, "data"))
+    np.save(os.path.join(d, "data", "volume.npy"), vol)
+    os.makedirs(os.path.join(d, "ckpt", "x"))
+    os.symlink(g_a, os.path.join(d, "ckpt", "x", "iter_1_net_G_A.npz"))
+    grid = DiceGrid(pad_for_dicing(vol, roi, overlap).shape, roi, overlap, border)
+    batches = grid.z_steps * -(-(grid.y_steps * grid.x_steps) // 2)
+    expected = {name: per_batch.get(name, 0) * batches for name in kernel_ops.KERNELS}
+    kernel_ops.reset_launches()
+    res = test_dice.main(["--dataroot", os.path.join(d, "data"), "--name", "x",
+                          "--checkpoints_dir", os.path.join(d, "ckpt"), "--load_iter", "1",
+                          "--model_suffix", "_A", "--results_dir", os.path.join(d, "results"),
+                          *argv])
+    launches = kernel_ops.launches()
+    log(f"  {label}: {len(grid)} tiles of {roi + 2 * border}^3 in {batches} batches; launches "
+        f"{launches}, expected {expected}; {res['seconds']:.3f} s")
+    if launches != expected:
+        raise AssertionError(f"{label}: launch counts {launches} != {expected}")
+    out = res["fake"]
+    if out.shape != vol.shape or out.dtype != np.uint16 or out.std() == 0:
+        raise AssertionError(f"{label}: output {out.shape} {out.dtype} std {out.std()}")
+    outs, _ = plain_outputs(load_npz(g_a), vol, dev, ("bfloat16", "float32"), netG, norm,
+                            border, eval_stats, roi, overlap)
+    ref = outs["float32"]
+    p_err, k_err = lsb_stats(outs["bfloat16"], ref), lsb_stats(out, ref)
+    kp = np.abs(out.astype(np.int64) - outs["bfloat16"])
+    log(f"  {label} against the f32 plain output: kernels (bf16) {k_err}; plain (bf16) "
+        f"{p_err}; kernels vs plain (bf16): max {int(kp.max())} LSB, mean "
+        f"{float(kp.mean()):.3f} LSB (limits {limits[0]}, {limits[1]}); output mean "
+        f"{out.mean():.1f} std {out.std():.1f}")
+    if (k_err["mean_lsb"] > SLICE_MEAN_RATIO * p_err["mean_lsb"]
+            or k_err["max_lsb"] > p_err["max_lsb"] + SLICE_MAX_EXTRA_LSB):
+        raise AssertionError(f"{label}: kernels less accurate than the plain path: {k_err} vs "
+                             f"{p_err}")
+    if kp.max() > limits[0] or kp.mean() > limits[1]:
+        raise AssertionError(f"{label}: kernels off the plain path: max {kp.max()}, mean "
+                             f"{kp.mean()}")
+    return {"launches": launches, "k_err": k_err, "p_err": p_err, "kp_max": int(kp.max()),
+            "kp_mean": float(kp.mean()), "seconds": res["seconds"]}
+
+
+def run_vanilla(seed: int, dev, tmp: str) -> dict:
+    """Apollo with --netG unet_vanilla at 112^3 through ``train_onecube.main``:
+    launches exact, the step median, a warm step's device time, idle share
+    and peak; the three-way step (VANILLA_DIRECT); test_dice from its
+    checkpoint against the plain path (VANILLA_KP_*)."""
+    vol = synthetic_volume(seed + 30, VANILLA_VOLUME)
+    res = train_phase("vanilla", VANILLA_ARGS, VANILLA_ITERS, VANILLA_STEP_LAUNCHES, vol, tmp,
+                      seed)
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *VANILLA_ARGS])
+    dataset = SingleVolumeDataset(vol, (VANILLA_CROP,) * 3, opt.preprocess, dev)
+    gen = torch.Generator().manual_seed(seed + 33)
+    prof = profile_model_step(res["model"], dataset.sample, VANILLA_CROP, gen, dev)
+    out = {"launches": res["launches"], "step_ms": res["step_ms"], **prof}
+    g_a = res["g_a"]
+    del res
+    torch.cuda.empty_cache()
+
+    def make(plain, precision):
+        opt.precision = precision
+        model = ApolloModel(opt, dev, plain=plain)
+        model.init_weights(seed)
+        return model
+
+    real = dataset.sample(gen)
+    runs = model_three_ways(make, lambda model: (real, model.draw_probes((VANILLA_CROP,) * 3,
+                                                                         gen)))
+    out["pooled"] = report_three_ways(f"vanilla step at {VANILLA_CROP}^3, random weights", runs,
+                                      VANILLA_DIRECT, LOSS_NAMES, D_NAMES)
+    dice = dice_against_plain("vanilla dice", g_a, synthetic_volume(seed), tmp, dev,
+                              VANILLA_DICE_ARGS, {"wconv3x3x3": 3, "pair_sums": 14,
+                                                  "affine_map_act": 14},
+                              (VANILLA_KP_MAX_LSB, VANILLA_KP_MEAN_LSB), "unet_vanilla",
+                              border=12)
+    out["dice"], out["dice_launches"] = dice, dice["launches"]
+    return out
+
+
+def _bn_buffers(model) -> list:
+    return [(f"{n}.{name}", m) for n in model.model_names
+            for name, m in model.nets[n].named_modules() if isinstance(m, norms.BatchNorm)]
+
+
+def check_refresh(model, step) -> float:
+    """Run ``step()`` (a training step of ``model``, ending in its
+    batch-norm refresh) with every batch norm's input recorded, the last
+    one per module being what the refresh pass fed it; then each module's
+    buffers against 0.9 x their value before + 0.1 x that input's mean and
+    biased variance over every axis but the channels, in float64.  Returns
+    the largest relative error."""
+    seen, hooks = {}, []
+    for name, m in _bn_buffers(model):
+        hooks.append(m.register_forward_pre_hook(
+            lambda mod, args, name=name: seen.__setitem__(name, args[0].detach())))
+    before = {name: (m.running_mean.double().clone(), m.running_var.double().clone())
+              for name, m in _bn_buffers(model)}
+    try:
+        step()
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = 0.0
+    for name, m in _bn_buffers(model):
+        x = seen[name].double().reshape(-1, seen[name].shape[-1])
+        mean, var = x.mean(0), x.var(0, unbiased=False)
+        want_m = 0.9 * before[name][0] + 0.1 * mean
+        want_v = 0.9 * before[name][1] + 0.1 * var
+        for got, want in ((m.running_mean, want_m), (m.running_var, want_v)):
+            err = float((got.double() - want).norm() / want.norm().clamp(min=1e-30))
+            worst = max(worst, err)
+    if not worst <= REFRESH_REL:
+        raise AssertionError(f"batch-norm refresh off its formula by {worst:.3g} (limit "
+                             f"{REFRESH_REL})")
+    return worst
+
+
+def _stats_rel(a, b) -> float:
+    num = sum(float(((ma.running_mean - mb.running_mean) ** 2).sum()
+                    + ((ma.running_var - mb.running_var) ** 2).sum())
+              for (_, ma), (_, mb) in zip(_bn_buffers(a), _bn_buffers(b)))
+    den = sum(float((mb.running_mean ** 2).sum() + (mb.running_var ** 2).sum())
+              for _, mb in _bn_buffers(b))
+    return math.sqrt(num / den)
+
+
+def batchnorm_lockstep(vol: np.ndarray, dev, seed: int, steps: int) -> list:
+    """The kernel and plain bf16 models with --norm batch from the same
+    weights, ``steps`` steps on the same crops and draws: after each, the
+    kernel model's refresh against its formula (``check_refresh``) and
+    every running statistic against the plain model's (relative L2).
+    Returns the per-step (refresh error, relative L2)."""
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *BATCHNORM_ARGS])
+    dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
+    models = {}
+    for plain in (False, True):
+        models[plain] = ApolloModel(opt, dev, plain=plain)
+        models[plain].init_weights(seed)
+    gen = torch.Generator().manual_seed(seed + 34)
+    out = []
+    for _ in range(steps):
+        real, draws = dataset.sample(gen), models[False].draw_probes((CROP,) * 3, gen)
+        refresh = check_refresh(models[False],
+                                lambda: models[False].optimize_parameters(real, draws))
+        models[True].optimize_parameters(real, draws)
+        out.append((refresh, _stats_rel(models[False], models[True])))
+    log("  lockstep against the plain model, per step (refresh against its formula, running "
+        "statistics relative L2): " + "; ".join(f"{r:.3g}, {d:.4g}" for r, d in out)
+        + f" (limits {REFRESH_REL}, {BATCHNORM_STATS_REL})")
+    bad = [d for _, d in out if not d <= BATCHNORM_STATS_REL]
+    if bad:
+        raise AssertionError(f"running statistics off the plain path: {bad}")
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def batchnorm_dice(g_a: str, vol: np.ndarray, tmp: str, dev) -> dict:
+    """test_dice --norm batch from ``g_a`` without and with --eval, each
+    against the plain path with the same statistics (the tile batch's, or
+    the running ones)."""
+    out = {}
+    for eval_stats in (False, True):
+        label = "batchnorm dice" + (" --eval" if eval_stats else "")
+        out[eval_stats] = dice_against_plain(
+            label.replace(" ", "_"), g_a, vol, tmp, dev,
+            [*SLICE_ARGS, "--norm", "batch", *(["--eval"] if eval_stats else [])],
+            {"wconv3x3x3": 2}, BATCHNORM_KP[eval_stats], norm="batch", eval_stats=eval_stats)
+    return out
+
+
+def run_batchnorm(seed: int, dev, tmp: str) -> dict:
+    """--norm batch at 108^3 through ``train_onecube.main``: only the W-pair
+    conv launches, exactly; the lockstep running statistics; test_dice with
+    and without --eval from its checkpoint."""
+    vol = synthetic_volume(seed + 31, TRAIN_VOLUME)
+    res = train_phase("batchnorm", BATCHNORM_ARGS, BATCHNORM_ITERS, BATCHNORM_STEP_LAUNCHES,
+                      vol, tmp, seed)
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *BATCHNORM_ARGS])
+    dataset = SingleVolumeDataset(vol, (CROP,) * 3, opt.preprocess, dev)
+    prof = profile_model_step(res["model"], dataset.sample, CROP,
+                              torch.Generator().manual_seed(seed + 35), dev)
+    out = {"launches": res["launches"], "step_ms": res["step_ms"], **prof}
+    g_a = res["g_a"]
+    del res
+    torch.cuda.empty_cache()
+    out["lockstep"] = batchnorm_lockstep(vol, dev, seed, BATCHNORM_ITERS)
+    out["dice"] = batchnorm_dice(g_a, synthetic_volume(seed), tmp, dev)
+    out["dice_launches"] = {k: v + out["dice"][True]["launches"][k]
+                            for k, v in out["dice"][False]["launches"].items()}
+    return out
+
+
+def spectral_reference(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``_spectral_normalise`` of the JAX package restated in float64: three
+    power iterations from ``u`` on the (out, in * k * k) weight matrix, w /
+    sigma."""
+    wm = w.double().reshape(w.shape[0], -1)
+    u = u.double()
+    for _ in range(3):
+        v = wm.t() @ u
+        v = v / (v.norm() + 1e-12)
+        u = wm @ v
+        u = u / (u.norm() + 1e-12)
+    return w.double() / (u @ (wm @ v))
+
+
+def check_spectral(net) -> float:
+    """Every spectral conv of ``net`` against ``spectral_reference`` (after
+    a forward and backward of the net, which must leave ``u`` as it was)."""
+    convs = [m for m in net.modules() if getattr(m, "spectral", False)]
+    if not convs:
+        raise AssertionError("no spectral conv")
+    worst = 0.0
+    for conv in convs:
+        u0 = conv.u.clone()
+        got = conv.spectral_weight().detach()
+        want = spectral_reference(conv.weight.detach(), u0)
+        worst = max(worst, float((got.double() - want).norm() / want.norm()))
+        if not torch.equal(conv.u, u0):
+            raise AssertionError("the spectral norm moved its u")
+    if not worst <= SPECTRAL_REL:
+        raise AssertionError(f"spectral norm off the restated one by {worst:.3g}")
+    return worst
+
+
+def check_resnet_transpose(dev, seed: int) -> float:
+    """ResnetGenerator's first upsampling (256 -> 128 channels, k3 stride 2,
+    on a 64^2 map) against the scatter of nn.ConvTranspose2d(padding=1,
+    output_padding=1) restated tap by tap: out[2i + a - 1, 2j + b - 1] +=
+    x[i, j] @ w[:, :, a, b]."""
+    net = define_G(1, 1, 64, "resnet_9blocks", "instance")
+    net.load_state_dict(params_from_numpy(init_flat(net, seed=seed), net))
+    up = net.up0.to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, 64, 64, 256), generator=g, device=dev)
+    with torch.no_grad():
+        got = up(x)
+        w = up.weight  # (I, O, 3, 3)
+        full = torch.zeros((1, 2 * 64 + 1, 2 * 64 + 1, w.shape[1]), device=dev)
+        for a in range(3):
+            for b in range(3):
+                full[:, a:a + 128:2, b:b + 128:2] += x @ w[:, :, a, b]
+        want = full[:, 1:, 1:] + up.bias
+    err = float((got - want).norm() / want.norm())
+    if not err <= TRANSPOSE_REL:
+        raise AssertionError(f"ResnetGenerator's transposed conv off the restated scatter by "
+                             f"{err:.3g}")
+    return err
+
+
+def _zoo_pair(kind: str, name: str, seed: int, dev):
+    """The kernel and plain builds of one zoo net with the same weights."""
+    nets = []
+    for plain in (False, True):
+        net = (define_G(1, 1, 64, name, "instance", plain=plain) if kind == "G"
+               else define_D(1, 64, name, 3, "instance", plain=plain))
+        if name == "fixed_kernel":
+            r = np.random.default_rng(seed).random((9, 9, 9)).astype(np.float32)
+            net.init_from_psf(r / r.sum())
+        net.load_state_dict(params_from_numpy(init_flat(net, seed=seed), net))
+        nets.append(net.to(dev))
+    return nets
+
+
+def _forward_backward(net, x, cot_seed: int):
+    """The outputs and the gradients (input's, then the parameters') of the
+    sum of the outputs times fixed random cotangents."""
+    x = x.detach().requires_grad_(True)
+    outs = net(x)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=x.device).manual_seed(cot_seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g, device=x.device)).sum()
+               for o in outs)
+    params = [p for p in net.parameters()]
+    grads = torch.autograd.grad(loss, [x, *params])
+    return [o.detach().float() for o in outs], [q.float() for q in grads]
+
+
+def _pooled_rel(a: list, b: list) -> float:
+    num = sum(float(((p - q) ** 2).sum()) for p, q in zip(a, b))
+    return math.sqrt(num / max(sum(float((q ** 2).sum()) for q in b), 1e-30))
+
+
+def run_zoo(seed: int, dev) -> dict:
+    """Every zoo net no other phase runs: the kernel build against the
+    plain build in f32 (ZOO_F32_*) and against the plain f32 build in bf16
+    no worse than the plain bf16 build; which kernels each launched; the
+    spectral norm and ResNet's transposed convs against their
+    restatements; the fixed kernel's noise in [0, 1].  Every net runs
+    before a failure is raised."""
+    report, bad = {}, []
+    cases = [("G", n, shape) for n, shape in ZOO_G] + [("D", n, ZOO_D_SHAPE) for n in ZOO_D]
+    for i, (kind, name, shape) in enumerate(cases):
+        nets = dict(zip(("kernels", "plain"), _zoo_pair(kind, name, seed + i, dev)))
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        x = torch.rand(shape, generator=g, device=dev)
+        runs, counts = {}, {}
+        for precision, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            for build_, net in nets.items():
+                before = kernel_ops.launches()
+                runs[build_, precision] = _forward_backward(net, x.to(dtype), seed)
+                torch.cuda.synchronize()
+                launched = {k: v - before[k] for k, v in kernel_ops.launches().items()
+                            if v != before[k]}
+                if build_ == "plain" and launched:
+                    bad.append(f"{name}: the plain build launched {launched}")
+                if build_ == "kernels":
+                    counts[precision] = launched
+                if not all(torch.isfinite(t).all() for part in runs[build_, precision]
+                           for t in part):
+                    bad.append(f"{name} ({build_}, {precision}): not finite")
+
+        def rel(a, b, part):
+            return _pooled_rel(runs[a][part], runs[b][part])
+
+        f32 = [rel(("kernels", "float32"), ("plain", "float32"), p) for p in (0, 1)]
+        k16 = [rel(("kernels", "bfloat16"), ("plain", "float32"), p) for p in (0, 1)]
+        p16 = [rel(("plain", "bfloat16"), ("plain", "float32"), p) for p in (0, 1)]
+        report[name] = {"f32": f32, "k16": k16, "p16": p16, "launches": counts}
+        log(f"  {name} {tuple(shape)}: f32 kernels against plain (output, gradients) "
+            f"{f32[0]:.3g}, {f32[1]:.3g}; bf16 against plain f32, kernels {k16[0]:.3g}, "
+            f"{k16[1]:.3g} / plain {p16[0]:.3g}, {p16[1]:.3g}; hand kernels launched (forward "
+            f"and backward, bf16 / f32) {counts.get('bfloat16')} / {counts.get('float32')}")
+        if not (f32[0] <= ZOO_F32_OUT and f32[1] <= ZOO_F32_GRAD):
+            bad.append(f"{name} (f32): kernels off plain by {f32[0]:.3g}, {f32[1]:.3g}")
+        for part, label in ((0, "output"), (1, "gradients")):
+            if not k16[part] <= STEP_GRAD_RATIO * p16[part] + STEP_GRAD_ABS:
+                bad.append(f"{name} (bf16 {label}): kernels {k16[part]:.3g} off f32, plain "
+                           f"{p16[part]:.3g}")
+        if name.endswith("_SN"):
+            report[name]["spectral"] = check_spectral(nets["kernels"])
+        if name == "fixed_kernel":
+            with torch.no_grad():
+                y = nets["kernels"](x, generator=torch.Generator(device=dev).manual_seed(seed))
+            if float(y.min()) != 0.0 or float(y.max()) != 1.0:
+                bad.append(f"fixed_kernel noise out of [0, 1]: {y.min()}, {y.max()}")
+        del nets, runs
+        torch.cuda.empty_cache()
+    report["transpose"] = check_resnet_transpose(dev, seed)
+    log(f"  spectral norms against the restated one: "
+        + ", ".join(f"{n} {report[n]['spectral']:.3g}" for n in ZOO_D if n.endswith("_SN"))
+        + f"; ResNet's transposed conv against the restated scatter {report['transpose']:.3g}")
+    if bad:
+        raise AssertionError("zoo nets: " + "; ".join(bad))
+    return {"nets": report}
+
+
 def nvidia_smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2420,6 +2904,34 @@ def main(argv=None) -> int:
                      f"{tg['p_err']}); against plain bf16 max {tg['kp_max']}, mean "
                      f"{tg['kp_mean']:.3f} LSB")
 
+    with Phase("vanilla") as ph, tempfile.TemporaryDirectory() as tmp:
+        vn = run_vanilla(args.seed, dev, tmp)
+        ph.result = (f"{VANILLA_CROP}^3 Apollo --netG unet_vanilla step {vn['step_ms']:.1f} ms "
+                     f"(median of {VANILLA_ITERS - 1}), warm {vn['wall_ms']:.1f} ms wall, device "
+                     f"{vn['device_ms']:.1f} ms, idle share {vn['idle']:.3f}, peak "
+                     f"{vn['peak_gib']:.3f} GiB; gradient error against f32 (kernels / plain "
+                     f"bf16) {vn['pooled']}; test_dice against plain bf16 max "
+                     f"{vn['dice']['kp_max']}, mean {vn['dice']['kp_mean']:.3f} LSB")
+
+    with Phase("batchnorm") as ph, tempfile.TemporaryDirectory() as tmp:
+        bn = run_batchnorm(args.seed, dev, tmp)
+        ph.result = (f"{CROP}^3 --norm batch step {bn['step_ms']:.1f} ms (median of "
+                     f"{BATCHNORM_ITERS - 1}), warm {bn['wall_ms']:.1f} ms wall, device "
+                     f"{bn['device_ms']:.1f} ms, idle share {bn['idle']:.3f}; running statistics "
+                     "against plain "
+                     f"{[round(d, 6) for _, d in bn['lockstep']]}; test_dice against plain "
+                     "bf16 (max, mean LSB) " + ", ".join(
+                         f"{'--eval' if e else 'batch statistics'} {r['kp_max']}, "
+                         f"{r['kp_mean']:.3f}" for e, r in bn["dice"].items()))
+
+    with Phase("zoo nets") as ph:
+        kernel_ops.reset_launches()
+        zo = run_zoo(args.seed, dev)
+        zo["launches"] = kernel_ops.launches()
+        ph.result = (f"{len(zo['nets']) - 1} nets, kernels against plain within "
+                     f"{ZOO_F32_OUT} / {ZOO_F32_GRAD} (f32) and no worse than plain (bf16); "
+                     "spectral and transposed-conv restatements hold")
+
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
@@ -2434,9 +2946,8 @@ def main(argv=None) -> int:
     # launches, the training kernels' rows one 108^3 step's; the forward
     # norm's rows (pair_sums, affine_map_act) carry the step's sums beside
     # the batch's as step_*, and one f32 cube's of the per-cube loop as
-    # legacy_*; launches are the counts of the slice's run, the dice CLI's,
-    # the per-cube loop's, its flip-TTA run's, the non-streaming run's, the
-    # trainer's and the resumed trainer's.
+    # legacy_*; launches are the sums of every path's count
+    # (launches_by_path), each read just after that path ran.
     rows = []
     csrc = "neuroclear_tpu_torch/ops/csrc/"
     for name, src, replaces, tot in (
@@ -2454,7 +2965,10 @@ def main(argv=None) -> int:
                    "train_f32": tr["f32_launches"][name], "resume": rs["launches"][name],
                    "study": st["launches"][name], "athena": at["launches"][name],
                    "dryops": dr["launches"][name], "epoch": ep["launches"][name],
-                   "trained_dice": tg["launches"][name]}
+                   "trained_dice": tg["launches"][name], "vanilla": vn["launches"][name],
+                   "vanilla_dice": vn["dice_launches"][name],
+                   "batchnorm": bn["launches"][name],
+                   "batchnorm_dice": bn["dice_launches"][name], "zoo": zo["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2472,6 +2986,7 @@ def main(argv=None) -> int:
                                  f"{prefix}_bound_ms": max(t["tb"], t["to"]),
                                  f"{prefix}_library_ms": t["library_ms"]})
     faulthandler.cancel_dump_traceback_later()
+    log(f"whole run {time.monotonic() - T_START:.1f} s (budget {BUDGET_S} s)")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,8 +32,18 @@ real crop on the source axis, and with ``all_slices`` slicing the next
 axis; Dryops' accumulation (``check_dryops_accumulation``) with an
 accumulator that redraws the probes for each crop; the host chain's
 rotation (``check_host_rotation``) with a warp whose source coordinates
-are 1/32 pixel off.  It exits nonzero unless the runs as they are pass
-their checks and every fault fails one.
+are 1/32 pixel off.  Last, the checks of the zoo slice (``zoo_failures``):
+the spectral norm against its restatement (``check_spectral``) with a
+spectral norm that runs one power iteration and updates ``u`` in place, as
+``torch.nn.utils.spectral_norm`` does; the batch-norm refresh against its
+restated formula (``batchnorm_lockstep``'s ``check_refresh``) with a refresh
+that takes the unbiased variance; ``test_dice --norm batch`` against its
+plain path (``batchnorm_dice``) with a ``TestModel`` that switches the
+generator to its running statistics without ``--eval``; ResNet's transposed
+conv against the restated scatter (``check_resnet_transpose``) with the
+transpose's kernel unflipped (a correlation, as JAX's ``conv_transpose``
+computes without the flip).  It exits nonzero unless the runs as they are
+pass their checks and every fault fails one.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import chip_smoke as cs
 from neuroclear_tpu_torch import test_dice
@@ -58,6 +69,10 @@ from neuroclear_tpu_torch.models import axial_to_lateral_gan_athena_model as ath
 from neuroclear_tpu_torch.models import gan_common
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import ApolloModel
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_dryops_model import DryopsModel
+from neuroclear_tpu_torch.models.test_model import TestModel
+from neuroclear_tpu_torch.nn import core, norms
+from neuroclear_tpu_torch.nn.factory import define_D, define_G
+from neuroclear_tpu_torch.utils.weights import init_flat, params_from_numpy
 from neuroclear_tpu_torch.nn import generators
 from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
 from neuroclear_tpu_torch.utils.assemble import Assemble_Dice
@@ -357,6 +372,124 @@ def new_model_failures(seed, dev) -> bool:
     return ok
 
 
+def _one_iteration_u_updated(f):
+    """The spectral norm as ``torch.nn.utils.spectral_norm`` runs it: one
+    power iteration from ``u``, and ``u`` updated in place."""
+    def fn(self, n_iter=3):
+        with torch.no_grad():
+            wm = self.weight.reshape(self.out_c, -1)
+            v = wm.t() @ self.u
+            v = v / (torch.linalg.vector_norm(v) + 1e-12)
+            u = wm @ v
+            u = u / (torch.linalg.vector_norm(u) + 1e-12)
+            self.u.copy_(u)
+            sigma = u @ (wm @ v)
+        return self.weight / sigma
+    return fn
+
+
+def _unbiased_statistics(f):
+    """Batch norm handing the refresh the unbiased variance (torch's
+    BatchNorm's running update)."""
+    def fn(self, x):
+        outer = norms._STATS_COLLECTOR
+        if outer is None or self.use_running:
+            return f(self, x)
+        with norms.collect_batch_stats() as mine:
+            y = f(self, x)
+        n = x.numel() // x.shape[-1]
+        outer.extend((m, mean, var * n / (n - 1)) for m, mean, var in mine)
+        return y
+    return fn
+
+
+def _running_statistics_always(f):
+    """TestModel putting its generator on the running statistics whether or
+    not --eval is given."""
+    def fn(self, opt, device=None):
+        f(self, opt, device)
+        norms.set_eval(self.netG)
+    return fn
+
+
+def _kernel_unflipped(f):
+    """The transposed conv on its kernel flipped spatially."""
+    def fn(self, x):
+        conv = F.conv_transpose3d if self.dim == 3 else F.conv_transpose2d
+        w = self.weight.flip(tuple(range(2, self.weight.dim())))
+        y = core._channels_last(conv(core._channels_first(x), w.to(x.dtype), None, self.stride,
+                                     self.padding, self.output_padding))
+        return y + self.bias.to(y.dtype) if self.bias is not None else y
+    return fn
+
+
+def _spectral_check(seed, dev):
+    """The zoo phase's spectral check on a basic_SN discriminator after a
+    forward and backward at the probe shape."""
+    net = define_D(1, 64, "basic_SN", 3, "instance")
+    net.load_state_dict(params_from_numpy(init_flat(net, seed=seed), net))
+    net.to(dev)
+    x = torch.rand(cs.ZOO_D_SHAPE, device=dev)
+    net(x).float().sum().backward()
+    cs.check_spectral(net)
+
+
+def _batchnorm_checkpoint(seed, root) -> str:
+    """A --norm batch UNetDeconv checkpoint with running statistics of its
+    own (random means and variances), written under ``root``."""
+    net = define_G(1, 1, 64, "unet_deconv", "batch")
+    flat = init_flat(net, seed=seed)
+    rng = np.random.default_rng(seed)
+    for k, v in flat.items():
+        if k.endswith(".running_mean"):
+            flat[k] = (rng.normal(size=v.shape) * 0.1).astype(np.float32)
+        elif k.endswith(".running_var"):
+            flat[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
+    path = os.path.join(root, "bn_net_G_A.npz")
+    np.savez(path, **flat)
+    return path
+
+
+def zoo_failures(seed, dev) -> bool:
+    """The zoo slice's checks as they are (each must pass) and with each of
+    their faults (each must fail); returns whether all did as they must."""
+    vol = cs.synthetic_volume(seed + 31, cs.TRAIN_VOLUME)
+    dice_vol = cs.synthetic_volume(seed)
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        g_a = _batchnorm_checkpoint(seed, tmp)
+        runs = iter(range(1000))
+        checks = [
+            ("spectral norm", lambda: _spectral_check(seed, dev),
+             [("spectral norm with one iteration, u updated in place",
+               _swapped(core.Conv, "spectral_weight", _one_iteration_u_updated))]),
+            ("batch-norm refresh", lambda: cs.batchnorm_lockstep(vol, dev, seed, 1),
+             [("refresh with the unbiased variance",
+               _swapped(norms.BatchNorm, "forward", _unbiased_statistics))]),
+            ("test_dice --norm batch", lambda: cs.batchnorm_dice(
+                g_a, dice_vol, os.path.join(tmp, f"r{next(runs)}"), dev),
+             [("TestModel on the running statistics without --eval",
+               _swapped(TestModel, "__init__", _running_statistics_always))]),
+            ("ResNet transposed conv", lambda: cs.check_resnet_transpose(dev, seed),
+             [("transposed conv with its kernel unflipped",
+               _swapped(core.ConvTranspose, "forward", _kernel_unflipped))]),
+        ]
+        for name, check, faults in checks:
+            for i, (label, fault) in enumerate([(f"{name} as it is",
+                                                 contextlib.nullcontext())] + faults):
+                try:
+                    with fault:
+                        check()
+                except AssertionError as e:
+                    cs.log(f"== {label}: the {name} check fails: {str(e)[:300]}")
+                    ok &= i > 0
+                else:
+                    cs.log(f"== {label}: the {name} check passes")
+                    ok &= i == 0
+                torch.cuda.empty_cache()
+    return ok
+
+
 def study_failures(seed, dev) -> bool:
     """The study phase's accumulation and remat checks as they are (each
     must pass) and with each of their faults (each must fail), and its
@@ -496,6 +629,7 @@ def main(argv=None) -> int:
     ok &= legacy_failures(args.seed, dev)
     ok &= study_failures(args.seed, dev)
     ok &= new_model_failures(args.seed, dev)
+    ok &= zoo_failures(args.seed, dev)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

@@ -3,8 +3,10 @@
 step or, with ``--grad_accum N``, N crops per step in the JAX package's
 default form (``host_step``, ``accumulate`` here).
 
-Two 3D generators (G_A ``unet_deconv``, G_B ``deep_linear_gen``) and four 2D
-discriminators.  D_A compares a random real XY slice with random-depth MIPs
+Two 3D generators (G_A ``--netG``, production ``unet_deconv``; G_B
+``--netG_B``, production ``deep_linear_gen``) and four 2D discriminators
+(``--netD``, production ``basic``), any of ``GAN_NET_G`` / ``GAN_NET_D``
+with any ``--norm``.  D_A compares a random real XY slice with random-depth MIPs
 of the fake volume along each axis; D_B compares slices of the real volume
 with slices of the reconstruction; the cycle term is forward L1 only.  One
 step mirrors ``make_apollo_step``:
@@ -73,11 +75,25 @@ def modify_commandline_options(parser):
     return parser
 
 
+# The --netG / --netG_B and --netD values with which the JAX package's three
+# GAN models build and take a step (tests/test_torch_zoo_accept.py holds
+# each value against them): the 3D generators with one output (not the
+# two-headed unet_twoouts, the 2D resnet_* and VGG, or fixed_kernel, which
+# has no init), and every discriminator
+GAN_NET_G = ("unet_deconv", "unet_vanilla", "deep_linear_gen", "linearkernel",
+             "linearkernel_double", "linearkernel_LK31", "linearkernel_NC")
+GAN_NET_D = factory.NET_D
+
+
 def check_nets(opt, netG_B: bool = True) -> None:
-    """NotImplementedError unless the production generators are asked for."""
-    if opt.netG != "unet_deconv" or (netG_B and opt.netG_B != "deep_linear_gen"):
-        raise NotImplementedError("the port's GAN models have netG unet_deconv and netG_B "
-                                  "deep_linear_gen (ROADMAP.md, queue 1)")
+    """NotImplementedError for a --netG, --netG_B or --netD value with which
+    the JAX package's GAN models do not run."""
+    for flag, values in (("netG", GAN_NET_G), ("netG_B", GAN_NET_G if netG_B else None),
+                         ("netD", GAN_NET_D)):
+        if values is not None and getattr(opt, flag) not in values:
+            raise NotImplementedError(
+                f"--{flag} {getattr(opt, flag)}: the JAX package's GAN models do not run it, "
+                f"so the port refuses it (ROADMAP.md, queue 1); they take {values}")
 
 
 class ApolloModel(BaseModel):
@@ -90,14 +106,15 @@ class ApolloModel(BaseModel):
     def __init__(self, opt, device=None, plain: bool = False):
         check_nets(opt)
         super().__init__(opt, device)
-        # one channel in and out, 64 filters, 3-layer discriminators: the
-        # production configuration's (the JAX CLI's defaults)
+        # one channel in and out, 64 filters: the production configuration's
+        # (the JAX CLI's defaults)
         self.nets = {
             "G_A": factory.define_G(1, 1, 64, opt.netG, opt.norm, plain=plain),
             "G_B": factory.define_G(1, 1, 64, opt.netG_B, opt.norm, plain=plain),
         }
         for name in D_NAMES:
-            self.nets[name] = factory.define_D(1, 64, opt.netD, 3, opt.norm, plain=plain)
+            self.nets[name] = factory.define_D(1, 64, opt.netD, opt.n_layers_D, opt.norm,
+                                               plain=plain)
         self._finish(opt)
 
     def g_loss(self, real, draws: ProbeDraws):

@@ -3,8 +3,9 @@
 step or, with ``--grad_accum N``, N crops per step (``BaseModel.accumulate``,
 the math of the JAX package's ``grad_accum_scan``).
 
-Two 3D generators (G_A ``unet_deconv``, G_B ``deep_linear_gen``) and six 2D
-discriminators, D_{A,B}_{xy,xz,yz}.  Every comparison is slice against
+Two 3D generators (G_A ``--netG``, G_B ``--netG_B``; the study's
+``unet_deconv`` and ``deep_linear_gen``) and six 2D discriminators
+(``--netD``), D_{A,B}_{xy,xz,yz}.  Every comparison is slice against
 slice, and each probe applies its discriminator to every slice of the crop
 along one axis as one batch (``gan_common.probe_all_slices``), so the step
 draws nothing.  ``--conversion_plane <source> <target>`` maps the planes to
@@ -71,6 +72,7 @@ class AthenaModel(BaseModel):
     """The eight nets, their f32 parameters and the two Adams, on ``device``."""
 
     G_NAMES, D_NAMES, LOSS_NAMES = G_NAMES, D_NAMES, LOSS_NAMES
+    REFRESH_ALL_CROPS = True
     modify_commandline_options = staticmethod(modify_commandline_options)
 
     def __init__(self, opt, device=None, plain: bool = False):
@@ -86,7 +88,8 @@ class AthenaModel(BaseModel):
             "G_B": factory.define_G(1, 1, 64, opt.netG_B, opt.norm, plain=plain),
         }
         for name in D_NAMES:
-            self.nets[name] = factory.define_D(1, 64, opt.netD, 3, opt.norm, plain=plain)
+            self.nets[name] = factory.define_D(1, 64, opt.netD, opt.n_layers_D, opt.norm,
+                                               plain=plain)
         self._finish(opt)
 
     def draw_probes(self, crop_shape, generator: torch.Generator):

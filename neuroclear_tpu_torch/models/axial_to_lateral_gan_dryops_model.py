@@ -4,8 +4,8 @@ one crop per step or, with ``--grad_accum N``, N crops per step
 (``BaseModel.accumulate``, under one set of draws for all N, as JAX closes
 its keys over ``grad_accum_scan``).
 
-G_A (``unet_deconv``) against two 2D discriminators.  One step mirrors
-``make_dryops_step``: one MIP depth; three G probes (window MIPs of the fake
+G_A (``--netG``, production ``unet_deconv``) against two 2D discriminators.
+One step mirrors ``make_dryops_step``: one MIP depth; three G probes (window MIPs of the fake
 on each axis through the frozen discriminators); six D probes, where D
 compares a real lateral *slice* with a fake *projection* on each axis; the
 G loss ``g_a_lat + 0.5 * g_a_ax``, the logged ``D_A_axial`` the mean of its
@@ -56,6 +56,7 @@ class DryopsModel(BaseModel):
     G_NAMES, D_NAMES, LOSS_NAMES = G_NAMES, D_NAMES, LOSS_NAMES
     VISUAL_NAMES = ["real", "fake"]
     G_PROBES, D_PROBES = G_PROBES, D_PROBES
+    REFRESH_ALL_CROPS = True
     modify_commandline_options = staticmethod(modify_commandline_options)
 
     def __init__(self, opt, device=None, plain: bool = False):
@@ -63,7 +64,8 @@ class DryopsModel(BaseModel):
         super().__init__(opt, device)
         self.nets = {"G_A": factory.define_G(1, 1, 64, opt.netG, opt.norm, plain=plain)}
         for name in D_NAMES:
-            self.nets[name] = factory.define_D(1, 64, opt.netD, 3, opt.norm, plain=plain)
+            self.nets[name] = factory.define_D(1, 64, opt.netD, opt.n_layers_D, opt.norm,
+                                               plain=plain)
         self._finish(opt)
 
     def g_loss(self, real, draws: ProbeDraws):

@@ -11,9 +11,13 @@ The JAX package's optimizer state is ``{"D": ScaleByAdamState, "G":
 ScaleByAdamState}`` (optax's ``count, mu, nu``), tree-flattened to arrays
 ``"0"`` .. ``"N-1"``: D's count, D's mu leaves, D's nu leaves, then G's.
 The leaves of mu and nu follow JAX's dict order, sorted key by key along
-each parameter's path ({net: {module: ... {"w", "b"}}}), with conv kernels
-in the (k..., I, O) layout.  ``__lr{i}__`` holds the i-th learning-rate
-controller's position (``LRController.state()``).  A ``torch.optim.Adam``
+each leaf's path ({net: {module: ... {"w", "b"}}}), with conv kernels in
+the (k..., I, O) layout.  Every leaf of the JAX parameter tree has its
+slot, the buffers too (a batch norm's running statistics, a spectral conv's
+``u``): their gradient is zero in JAX, so Adam's moments stay exactly zero
+there; the port writes zeros and reads nothing back into them.
+``__lr{i}__`` holds the i-th learning-rate controller's position
+(``LRController.state()``).  A ``torch.optim.Adam``
 maps onto it as count -> every parameter's ``step``, mu -> ``exp_avg``, nu
 -> ``exp_avg_sq``.
 """
@@ -27,9 +31,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..nn import norms
 from ..nn.schedulers import LRController
-from ..utils.weights import count_params, flat_from_module, init_flat, jax_named_params, \
-    load_npz, params_from_numpy, to_numpy
+from ..utils.weights import count_params, flat_from_module, init_flat, jax_leaves, load_npz, \
+    params_from_numpy, to_numpy
 from . import gan_common as gc
 
 
@@ -60,10 +65,11 @@ def load_networks(nets: dict, save_dir: str, suffix: str) -> None:
 
 
 def _leaves(nets: dict):
-    """(to_jax, from_jax, parameter) of every parameter of ``nets`` in the
-    order of JAX's flattening of {NAME: param tree}."""
-    entries = [((name, *key.split(".")), to_jax, from_jax, p)
-               for name, net in nets.items() for key, to_jax, from_jax, p in jax_named_params(net)]
+    """(to_jax, from_jax, tensor, is_parameter) of every leaf of ``nets`` in
+    the order of JAX's flattening of {NAME: param tree}."""
+    entries = [((name, *key.split(".")), to_jax, from_jax, t, param)
+               for name, net in nets.items()
+               for key, _, to_jax, from_jax, t, param in jax_leaves(net)]
     entries.sort(key=lambda e: e[0])
     return [e[1:] for e in entries]
 
@@ -74,14 +80,14 @@ def optim_arrays(groups, lr_controllers) -> dict:
     flat = []
     for optim, nets in groups:
         leaves = _leaves(nets)
-        states = [optim.state.get(p, {}) for _, _, p in leaves]
-        steps = {int(s["step"]) if s else 0 for s in states}
+        states = [optim.state.get(p, {}) if param else None for _, _, p, param in leaves]
+        steps = {int(s["step"]) if s else 0 for s in states if s is not None}
         if len(steps) != 1:
             raise RuntimeError(f"the parameters of one optimizer are at steps {sorted(steps)}")
         mu = [to_numpy(to_jax(s["exp_avg"])) if s else np.zeros(to_jax(p).shape, np.float32)
-              for (to_jax, _, p), s in zip(leaves, states)]
+              for (to_jax, _, p, _), s in zip(leaves, states)]
         nu = [to_numpy(to_jax(s["exp_avg_sq"])) if s else np.zeros(to_jax(p).shape, np.float32)
-              for (to_jax, _, p), s in zip(leaves, states)]
+              for (to_jax, _, p, _), s in zip(leaves, states)]
         flat += [np.asarray(steps.pop(), np.int32), *mu, *nu]
     arrays = {str(i): a for i, a in enumerate(flat)}
     for i, c in enumerate(lr_controllers):
@@ -116,7 +122,10 @@ def load_optim(path: str, groups, lr_controllers) -> bool:
         mu = [arrays[str(i + 1 + j)] for j in range(len(leaves))]
         nu = [arrays[str(i + 1 + len(leaves) + j)] for j in range(len(leaves))]
         i += 1 + 2 * len(leaves)
-        for (_, from_jax, p), m, v in zip(leaves, mu, nu):
+        for (_, from_jax, p, param), m, v in zip(leaves, mu, nu):
+            if not param:
+                continue
+
             def load(a):
                 return from_jax(np.asarray(a, np.float32)).to(p.device).contiguous()
             optim.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
@@ -152,9 +161,14 @@ class BaseModel:
     VISUAL_NAMES: list = ["real", "fake", "rec"]
     G_PROBES: list = []
     D_PROBES: list = []
+    # the input of the batch-norm refresh after a --grad_accum step: the
+    # last crop (Apollo, whose JAX step takes its crops from a sampler), or
+    # the batch of all N crops (Athena and Dryops, which JAX hands the batch)
+    REFRESH_ALL_CROPS = False
 
     def __init__(self, opt, device=None):
         self.device = resolve_device(device)
+        self.norm = opt.norm
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
         self.cfg = gc.GanStepConfig(
             gan_mode=opt.gan_mode, lambda_A=opt.lambda_A,
@@ -327,19 +341,50 @@ class BaseModel:
             optim.step()
             optim.zero_grad(set_to_none=True)
 
+    @torch.no_grad()
+    def refresh_norm_stats(self, real: torch.Tensor) -> None:
+        """``refresh_norm_stats`` of the JAX package: after an update, one
+        pass without gradients on ``real`` in f32 collects every batch
+        norm's batch statistics (the G nets chained: G_A on ``real``, G_B on
+        its output; each D net on the 2-batch of the middle lateral slice of
+        ``real`` and of the first G's output), then the EMA with momentum
+        0.1 refreshes their running statistics.  A no-op unless ``--norm
+        batch``."""
+        if self.norm != "batch":
+            return
+        x = real.to(self.device, torch.float32)
+        with norms.collect_batch_stats() as stats:
+            inp = fake = x
+            for i, name in enumerate(self.G_NAMES):
+                inp = self.nets[name](inp)
+                if i == 0:
+                    fake = inp
+            if self.D_NAMES and x.dim() == 5:
+                mid = x.shape[1] // 2
+                d_in = torch.cat([x[:, mid], fake[:, mid]], dim=0)
+                for name in self.D_NAMES:
+                    self.nets[name](d_in)
+        norms.ema_update_stats(stats)
+
     def optimize_parameters(self, real: torch.Tensor, draws):
         """One training step: (losses, *outs); the real crop and the outputs
-        are kept as the visuals, on the device."""
+        are kept as the visuals, on the device.  Then the batch-norm
+        refresh on the crop."""
         losses, *outs, g_grads, d_grads = self.gradients(real, draws)
         self.apply_gradients(g_grads, d_grads)
         self.visuals = dict(zip(self.VISUAL_NAMES, (real, *outs)))
+        self.refresh_norm_stats(real)
         return (losses, *outs)
 
     def optimize_parameters_accum(self, crop, n: int, draws):
         """One ``--grad_accum n`` training step (``accumulate``, then one
         Adam update on the mean gradients): (losses, *outs); the last crop's
-        real and outputs are kept as the visuals."""
+        real and outputs are kept as the visuals.  Then the batch-norm
+        refresh on the last crop, or on all n (``REFRESH_ALL_CROPS``)."""
         losses, real, *outs, g_grads, d_grads = self.accumulate(crop, n, draws)
         self.apply_gradients(g_grads, d_grads)
         self.visuals = dict(zip(self.VISUAL_NAMES, (real, *outs)))
+        if self.norm == "batch":
+            self.refresh_norm_stats(torch.cat([crop(i) for i in range(n)])
+                                    if self.REFRESH_ALL_CROPS else real)
         return (losses, *outs)

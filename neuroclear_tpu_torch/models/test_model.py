@@ -3,7 +3,10 @@
 accessors of ``models/base_model.py`` (``--load_iter``, ``--epoch``,
 ``--model_suffix``; ``set_input``, ``test``, ``get_current_visuals``,
 ``eval``).  The fused tile pipeline runs ``netG`` itself; the per-cube loop
-(``--legacy_pipeline``) goes through ``set_input`` and ``test``.
+(``--legacy_pipeline``) goes through ``set_input`` and ``test``.  ``netG`` is
+``--netG`` with ``--norm``; a batch-norm generator uses its running
+statistics only after ``eval()`` (``--eval``), as the JAX package traces
+under ``eval_mode``: without it each batch is normalised by its own.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..nn import factory
+from ..nn import factory, norms
 from ..utils.weights import count_params, load_npz, params_from_numpy
 
 
@@ -32,16 +35,15 @@ def _to_ndhwc(x) -> np.ndarray:
 
 
 class TestModel:
-    """The production generator (unet_deconv, instance norm), the only one
-    ported so far, loaded from a JAX-format checkpoint."""
+    """``--netG`` with ``--norm`` (production: unet_deconv, instance norm),
+    loaded from a JAX-format checkpoint."""
 
     def __init__(self, opt, device=None):
         self.device = resolve_device(device)
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
         self.visual_names = ["real", "fake"]
         self.model_names = ["G" + opt.model_suffix]
-        self.netG = factory.define_G(1, 1, 64, "unet_deconv", "instance")
-        self.netG.eval()
+        self.netG = factory.define_G(1, 1, opt.ngf, opt.netG, opt.norm)
         self.image_paths = ""
         self._visuals = OrderedDict()
 
@@ -59,8 +61,9 @@ class TestModel:
         self.netG.to(self.device)
 
     def eval(self) -> None:
-        """Eval semantics (the instance norm has no state it changes)."""
-        self.netG.eval()
+        """Eval semantics: batch norms normalise with their running
+        statistics (the instance norm has no state it changes)."""
+        norms.set_eval(self.netG)
 
     def set_input(self, input) -> None:
         """``input["A"]``: a host array of one or more cubes, uploaded to the

@@ -16,13 +16,17 @@ from __future__ import annotations
 import argparse
 import os
 
+from ..models.axial_to_lateral_gan_apollo_model import GAN_NET_G
+from ..nn.norms import NORMS
 from ..utils.weights import INIT_TYPES
 from . import add_gpu_ids, device_of, refuse_other_values
 from . import print_options as _print_options
 
-# value flags whose other values select paths the port does not have
-PORTED_VALUES = {"netG": ("unet_deconv",), "dataset_mode": ("diceImage", "simulationcrop"),
-                 "image_dimension": (3,), "norm": ("instance",), "ngf": (64,)}
+# value flags whose other values select paths the port does not have; the
+# generators are the 3D one-output nets with which the JAX test_dice.py runs
+# (the GAN models' set: the two-headed, 2D and PSF nets do not run there)
+PORTED_VALUES = {"netG": GAN_NET_G, "dataset_mode": ("diceImage", "simulationcrop"),
+                 "image_dimension": (3,), "norm": NORMS, "ngf": (64,)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,7 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repetition", action="store_true",
                    help="flip-TTA: infer flipped copies of each tile and average")
     p.add_argument("--eval", action="store_true",
-                   help="eval mode (the instance-norm generator has no state it changes)")
+                   help="eval mode: a --norm batch generator normalises with its running "
+                        "statistics; without it, each tile batch (or cube) by its own, so the "
+                        "output depends on --tile_batch (no effect on the other norms)")
     # the per-cube host loop
     p.add_argument("--legacy_pipeline", action="store_true",
                    help="run each cube through the model on its own and assemble them on the "
@@ -88,8 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aspect_ratio", type=float, default=1.0,
                    help="no effect (the JAX package does not apply it either); taken so "
                         "that a JAX command line parses")
-    # one generator and one dataset are ported
-    p.add_argument("--netG", default="unet_deconv")
+    # the generator
+    p.add_argument("--netG", default="unet_deconv",
+                   help="unet_vanilla needs tiles (dice_size + 2 border_cut) that are "
+                        "multiples of 8")
     p.add_argument("--norm", default="instance")
     p.add_argument("--ngf", type=int, default=64)
     p.add_argument("--no_dropout", action="store_true",

@@ -26,14 +26,17 @@ import os
 
 from .. import models
 from ..data.singlevolume_dataset import check_preprocess
+from ..models.axial_to_lateral_gan_apollo_model import GAN_NET_D, GAN_NET_G
+from ..nn.norms import NORMS
 from ..utils.weights import INIT_TYPES
 from . import ROADMAP, add_gpu_ids, device_of, refuse_other_values
 from . import print_options as _print_options
 
 NOT_PORTED = f"is not ported yet {ROADMAP}"
-# value flags the production nets fix: one channel in and out, 64 filters
+# value flags the production nets fix (one channel in and out, 64 filters),
+# and the nets and norms with which the JAX package's GAN models run
 PORTED_VALUES = {"input_nc": (1,), "output_nc": (1,), "ngf": (64,), "ndf": (64,),
-                 "netG": ("unet_deconv",), "netD": ("basic",), "norm": ("instance",)}
+                 "netG": GAN_NET_G, "netD": GAN_NET_D, "norm": NORMS}
 
 
 def build_parser(argv=None) -> argparse.ArgumentParser:
@@ -76,8 +79,11 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--ngf", type=int, default=64)
     p.add_argument("--ndf", type=int, default=64)
     p.add_argument("--n_layers_D", type=int, default=3,
-                   help="depth of the n_layers discriminator (not read by basic, as in JAX)")
-    p.add_argument("--norm", default="instance")
+                   help="depth of the n_layers and n_layers_SN discriminators (not read by "
+                        "basic, as in JAX)")
+    p.add_argument("--norm", default="instance",
+                   help="instance | batch (running statistics refreshed after every step) | "
+                        "none | spectral (both identity)")
     p.add_argument("--init_type", default="normal", choices=INIT_TYPES,
                    help="weight init scheme")
     p.add_argument("--init_gain", type=float, default=0.02,
@@ -165,7 +171,7 @@ def check_options(opt, dataset_modes=("singlevolume",), check_preprocess=check_p
         (opt.batch_size != 1, f"--batch_size {opt.batch_size} (--grad_accum takes its crops "
                               "one at a time, with --batch_size 1, as in JAX)"),
         (opt.fused_accum, "--fused_accum (item 1)"),
-        (getattr(opt, "netG_B", "deep_linear_gen") != "deep_linear_gen",
+        (getattr(opt, "netG_B", "deep_linear_gen") not in GAN_NET_G,
          f"--netG_B {getattr(opt, 'netG_B', None)}"),
     ]
     for bad, what in refused:

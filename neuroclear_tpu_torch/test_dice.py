@@ -15,7 +15,11 @@ format), runs on the card unless ``--device cpu`` is given, and writes under
 ``<results_dir>/<name>/<phase>_<epoch>[_iter<N>]/`` what the JAX CLI writes:
 the galleries ``index.html`` and ``index_wholeimg.html`` with their PNG
 thumbnails under ``images/``, ``volumes/``, ``projections/``, ``images/``
-slices and ``metrics.txt``.  By default the tiles stream through the fused
+slices and ``metrics.txt``.  ``--netG`` and ``--norm`` name the generator
+(any 3D one-output net of the zoo; ``unet_vanilla`` needs tiles that are
+multiples of 8); ``--eval`` switches a batch-norm generator to its running
+statistics, without it every tile batch (or cube) is normalised by its own
+statistics, as in JAX.  By default the tiles stream through the fused
 pipeline on the device (``run_fused``, ``--precision`` bfloat16);
 ``--legacy_pipeline``, or ``--histogram_match``, which needs it, runs each
 cube through the model on its own in float32 and assembles the cubes on the
@@ -152,6 +156,8 @@ def run_fused(opt, model, dataset, web_dir, device) -> dict:
     # comes after it, so the device crops only when normalize_intensity is off.
     out_dtype = {"uint8": np.uint8, "uint16": np.uint16}.get(opt.data_type)
     orig = None if opt.normalize_intensity else dataset.size_original()
+    if opt.eval:
+        model.eval()
     pipe = DiceInferencePipeline(
         model.netG, dataset.grid, inv_scale, tile_batch=opt.tile_batch,
         repetition=opt.repetition, precision=opt.precision, out_dtype=out_dtype,

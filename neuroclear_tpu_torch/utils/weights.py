@@ -1,10 +1,17 @@
 """Weights across the two packages.
 
-The JAX package checkpoints a network as a flat ``.npz`` of
-``{module path}.w`` / ``{module path}.b`` arrays (``nn/core.py:287-307``,
-written by ``models/base_model.py:241``), conv kernels in (k..., I, O)
-order.  The port's modules keep the same paths and PyTorch's layouts;
-``params_from_numpy`` reads that format and ``flat_from_module`` writes it.
+The JAX package checkpoints a network as a flat ``.npz`` of its parameter
+tree's leaves under their dotted paths (``nn/core.py:287-307``, written by
+``models/base_model.py:241``): a conv's, transposed conv's or linear
+layer's ``w`` (kernels in (k..., I, O) order, linear weights (in, out)) and
+``b``, a spectral conv's power-iteration vector ``u``, a batch norm's
+``scale``, ``offset``, ``running_mean`` and ``running_var``, and the fixed
+kernel's ``psf``.  The port's modules keep the same paths (a net's
+``jax_paths`` renames a child where the port's name differs) and PyTorch's
+layouts; ``params_from_numpy`` reads that format and ``flat_from_module``
+writes it.  ``u``, the running statistics and ``psf`` are buffers in the
+port: the optimizer does not see them (their gradient is zero in JAX, so
+Adam leaves them as they are there too).
 """
 
 from __future__ import annotations
@@ -15,9 +22,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.core import Conv, ConvTranspose
+from ..nn.core import Conv, ConvTranspose, Linear
+from ..nn.generators import FixedLinearKernel
+from ..nn.norms import BatchNorm
 
-_LAYERS = (Conv, ConvTranspose)
+_LAYERS = (Conv, ConvTranspose, Linear)
 
 
 def load_npz(path: str) -> dict:
@@ -26,37 +35,59 @@ def load_npz(path: str) -> dict:
         return {k: data[k] for k in data.files}
 
 
+def _jax_prefix(net: nn.Module, name: str) -> str:
+    """The JAX path of the module at ``name`` (each parent's ``jax_paths``
+    renaming its children)."""
+    out, module = [], net
+    for part in name.split(".") if name else []:
+        out.append(getattr(module, "jax_paths", {}).get(part, part))
+        module = getattr(module, part)
+    return ".".join(out)
+
+
+def jax_leaves(net: nn.Module) -> list:
+    """(JAX flat key, state-dict key, to_jax, from_jax, tensor, is_parameter)
+    of every leaf of ``net``'s JAX parameter tree: ``to_jax`` maps a tensor
+    of the leaf's shape to the JAX layout, ``from_jax`` back."""
+    out = []
+    for name, m in net.named_modules():
+        jp = _jax_prefix(net, name)
+
+        def leaf(jax_leaf, attr, to_jax=_same, from_jax=torch.as_tensor, param=True):
+            key = f"{jp}.{jax_leaf}" if jp else jax_leaf
+            sd = f"{name}.{attr}" if name else attr
+            out.append((key, sd, to_jax, from_jax, getattr(m, attr), param))
+
+        if isinstance(m, _LAYERS):
+            leaf("w", "weight", m.weight_to_jax, m.weight_from_jax)
+            if m.bias is not None:
+                leaf("b", "bias")
+            if getattr(m, "spectral", False):
+                leaf("u", "u", param=False)
+        elif isinstance(m, BatchNorm):
+            leaf("scale", "scale")
+            leaf("offset", "offset")
+            leaf("running_mean", "running_mean", param=False)
+            leaf("running_var", "running_var", param=False)
+        elif isinstance(m, FixedLinearKernel):
+            leaf("psf", "psf", param=False)
+    return out
+
+
 def params_from_numpy(flat: dict, net: nn.Module) -> dict:
     """The JAX flat dict -> a state dict for ``net``.  Raises on a key the
-    net does not have, or on a parameter of the net that the dict lacks."""
+    net does not have, or on a leaf of the net that the dict lacks."""
+    leaves = {key: (sd, from_jax) for key, sd, _, from_jax, _, _ in jax_leaves(net)}
     state = {}
     for key, arr in flat.items():
-        prefix, leaf = key.rsplit(".", 1)
-        layer = net.get_submodule(prefix)
-        if not isinstance(layer, _LAYERS) or leaf not in ("w", "b"):
+        if key not in leaves:
             raise KeyError(f"checkpoint key {key!r} has no counterpart in {type(net).__name__}")
-        if leaf == "w":
-            state[f"{prefix}.weight"] = layer.weight_from_jax(np.array(arr, np.float32))
-        else:
-            state[f"{prefix}.bias"] = torch.as_tensor(np.array(arr, np.float32))
+        sd, from_jax = leaves[key]
+        state[sd] = from_jax(np.array(arr, np.float32))
     missing = set(net.state_dict()) - set(state)
     if missing:
         raise KeyError(f"checkpoint lacks {sorted(missing)}")
     return state
-
-
-def jax_named_params(net: nn.Module) -> list:
-    """(JAX flat key, to_jax, from_jax, parameter) of each of ``net``'s
-    parameters: ``to_jax`` maps a tensor of the parameter's shape to the JAX
-    layout, ``from_jax`` back."""
-    out = []
-    for name, layer in net.named_modules():
-        if not isinstance(layer, _LAYERS):
-            continue
-        out.append((f"{name}.w", layer.weight_to_jax, layer.weight_from_jax, layer.weight))
-        if layer.bias is not None:
-            out.append((f"{name}.b", _same, torch.as_tensor, layer.bias))
-    return out
 
 
 def _same(t):
@@ -69,9 +100,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def flat_from_module(net: nn.Module) -> dict:
-    """``net``'s parameters in the JAX flat format: {key: f32 numpy array},
+    """``net``'s leaves in the JAX flat format: {key: f32 numpy array},
     conv kernels as (k..., I, O)."""
-    return {key: to_numpy(to_jax(p)) for key, to_jax, _, p in jax_named_params(net)}
+    return {key: to_numpy(to_jax(t)) for key, _, to_jax, _, t, _ in jax_leaves(net)}
 
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
@@ -123,22 +154,30 @@ def init_weight(rng: np.random.Generator, kshape, init_type: str, gain: float,
 
 def init_flat(net: nn.Module, init_type: str = "kaiming", gain: float = 0.02,
               seed: int = 0) -> dict:
-    """Random weights for ``net`` in the JAX flat format, each kernel drawn
-    by ``init_weight`` in module order from numpy seed ``seed`` (so both
-    packages can load them), zero biases, as the JAX layers' ``init``
-    methods give them."""
+    """Random weights for ``net`` in the JAX flat format, drawn from numpy
+    seed ``seed`` in module order as the JAX layers' ``init`` methods give
+    them: each kernel or linear weight by ``init_weight``, then a spectral
+    conv's ``u`` ~ N(0, 1); zero biases; a batch norm's ``scale`` ~ N(1,
+    gain), ``offset`` 0, running statistics 0 and 1; a fixed kernel's PSF as
+    the module holds it (the JAX net has no init)."""
     rng = np.random.default_rng(seed)
     flat = {}
-    for name, layer in net.named_modules():
-        if not isinstance(layer, _LAYERS):
-            continue
-        w = layer.weight
-        transpose = isinstance(layer, ConvTranspose)
-        i, o = (w.shape[0], w.shape[1]) if transpose else (w.shape[1], w.shape[0])
-        flat[f"{name}.w"] = init_weight(rng, tuple(w.shape[2:]) + (i, o), init_type, gain,
-                                        transpose)
-        if layer.bias is not None:
-            flat[f"{name}.b"] = np.zeros((o,), np.float32)
+    for key, _, to_jax, _, t, _ in jax_leaves(net):
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "w":
+            kshape = tuple(to_jax(t).shape)
+            flat[key] = init_weight(rng, kshape, init_type, gain,
+                                    to_jax is ConvTranspose.weight_to_jax)
+        elif leaf == "u":
+            flat[key] = rng.standard_normal(t.shape).astype(np.float32)
+        elif leaf == "scale":
+            flat[key] = (1.0 + rng.standard_normal(t.shape) * gain).astype(np.float32)
+        elif leaf in ("b", "offset", "running_mean"):
+            flat[key] = np.zeros(t.shape, np.float32)
+        elif leaf == "running_var":
+            flat[key] = np.ones(t.shape, np.float32)
+        else:
+            flat[key] = to_numpy(to_jax(t))
     return flat
 
 

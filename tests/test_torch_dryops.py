@@ -9,7 +9,9 @@ three nets).
 
 The JAX step is built with an optax transformation that keeps the gradients
 it is given as its state (see tests/test_torch_athena.py).  Bars: losses
-rtol 1e-4, the fake rtol 1e-4.  Gradients are held against the JAX step
+rtol 1e-4, the fake rtol 1e-4.  The accumulation cases are in
+tests/test_torch_dryops_accum.py (their JAX step compiles apart, so a
+worker of their own runs them).  Gradients are held against the JAX step
 itself run in float64 (``jax.enable_x64``, a float64 compute dtype, the
 norm's statistics and maps of ``neuroclear_tpu/ops/pallas_ops.py`` in their
 input dtype instead of f32, ``jax.random.randint`` kept at its 32-bit draws
@@ -236,39 +238,6 @@ def test_fake_matches_jax(case):
 
 def test_gradients_match_float64_and_jax(case):
     _assert_grads(case["port"], case["jax64"])
-
-
-@pytest.fixture(scope="module")
-def accum():
-    params = _weights("random")
-    rng = jax.random.PRNGKey(9)
-    crops = _real(3, n=2)
-    jax_out = _jax_step(params, rng, crops, accum=2)
-    model = _port({n: flatten_params(params[n]) for n in MODEL_NAMES}, extra=["--grad_accum", "2"])
-    return jax_out, model, crops, _draws(rng)
-
-
-def test_accumulation_draws_once_and_matches_grad_accum_scan(accum):
-    """JAX closes one step's keys over ``grad_accum_scan``: both crops'
-    micro-steps use the same depth and positions.  The port's accumulation
-    under the one set of draws matches it."""
-    (jl, jfake, jax64), model, crops, draws = accum
-    losses, real, fake, gg, dg = model.accumulate(
-        lambda i: torch.from_numpy(crops[i:i + 1]), 2, draws)
-    for name in LOSS_NAMES:
-        assert float(losses[name]) == pytest.approx(jl[name], rel=1e-4), name
-    np.testing.assert_array_equal(real.numpy(), crops[1:2])
-    np.testing.assert_allclose(fake.numpy(), jfake, rtol=1e-4, atol=1e-4 * np.abs(jfake).max())
-    _assert_grads({**_flat_of(model, G_NAMES, gg), **_flat_of(model, D_NAMES, dg)}, jax64)
-
-
-def test_accumulation_is_the_mean_of_the_crops_gradients(accum):
-    _, model, crops, draws = accum
-    *_, gg, dg = model.accumulate(lambda i: torch.from_numpy(crops[i:i + 1]), 2, draws)
-    per = [model.gradients(torch.from_numpy(crops[i:i + 1]), draws) for i in range(2)]
-    for j, acc in enumerate(list(gg) + list(dg)):
-        mean = sum((p[2] + p[3])[j] for p in per) / 2
-        assert torch.linalg.vector_norm(acc - mean) <= 1e-6 * torch.linalg.vector_norm(mean)
 
 
 def test_draw_probes_draws_the_depth_then_three_and_six_positions():

@@ -54,7 +54,8 @@ def test_port_and_chip_smoke_import_without_jax():
     for name in ("ops.rotation", "nn.schedulers", "options.train_options", "utils.visualizer",
                  "train", "data.warp", "data.cube_dataset", "data.simulationcrop_dataset",
                  "models.axial_to_lateral_gan_athena_model",
-                 "models.axial_to_lateral_gan_dryops_model"):
+                 "models.axial_to_lateral_gan_dryops_model", "utils.image_pool", "nn.norms",
+                 "nn.factory", "nn.generators", "nn.discriminators"):
         assert f"neuroclear_tpu_torch.{name}" in proc.stdout.split(), name
 
 

@@ -83,7 +83,7 @@ def test_study_athena_command_parses_through_the_registry():
     assert opt.crop_size == [128, 128, 128] and opt.pool_size == 50
 
 
-@pytest.mark.parametrize("extra", [["--netG", "unet_vanilla"], ["--netG_B", "resnet_9blocks"],
+@pytest.mark.parametrize("extra", [["--netG", "unet_twoouts"], ["--netG_B", "resnet_9blocks"],
                                    ["--model", "cycle_gan"], ["--batch_size", "2"]])
 def test_what_is_not_ported_is_refused_for_athena(extra):
     argv = ["--dataroot", "x", "--model", "axial_to_lateral_gan_athena", "--device", "cpu",

@@ -256,7 +256,7 @@ def test_port_cli_runs_the_per_cube_switches(tmp_path, checkpoint, switch):
     (["--dataset_mode", "cube"], NotImplementedError),
     (["--image_dimension", "2"], NotImplementedError),
     (["--dice_size", "0"], ValueError),
-    (["--norm", "batch"], NotImplementedError),
+    (["--netG", "fixed_kernel"], NotImplementedError),
     (["--ngf", "32"], NotImplementedError),
     (["--gpu_ids", "0,1"], NotImplementedError),
 ])

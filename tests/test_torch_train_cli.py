@@ -132,7 +132,7 @@ def test_crop_draws_cover_the_inclusive_range():
 
 @pytest.mark.parametrize("extra", [
     ["--fused_accum"], ["--grad_accum", "2", "--batch_size", "2"],
-    ["--netG", "unet_vanilla"], ["--netD", "n_layers"],
+    ["--netG", "VGG"], ["--netG_B", "unet_twoouts"],
     ["--preprocess",
      "random3Drotate_random90rotate_randomcrop_randomflip_addColorChannel_addBatchChannel"]])
 def test_options_not_ported_are_refused(tmp_path, extra):
@@ -236,7 +236,7 @@ def test_jax_flags_are_accepted(flags, device):
 
 @pytest.mark.parametrize("flags", [
     ["--gpu_ids", "0,1"], ["--ngf", "32"], ["--ndf", "128"], ["--input_nc", "2"],
-    ["--output_nc", "3"], ["--norm", "batch"], ["--fused_accum", "--grad_accum", "8"]])
+    ["--output_nc", "3"], ["--netG", "resnet_6blocks"], ["--fused_accum", "--grad_accum", "8"]])
 def test_jax_flag_values_not_ported_are_refused(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_options.parse(["--dataroot", "x", "--seed", "1", *flags])

@@ -107,5 +107,5 @@ def test_npz_round_trip_and_plain_network(tmp_path, weights):
         assert torch.equal(net(x), plain(x))
     with pytest.raises(KeyError):
         params_from_numpy({k: v for k, v in loaded.items() if k != "t_conv1.w"}, net)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_G(1, 1, 64, "resnet_9blocks")
+    with pytest.raises(NotImplementedError, match="not recognized"):
+        define_G(1, 1, 64, "unet_shallow")
