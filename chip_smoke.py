@@ -129,7 +129,30 @@ Phases, each printed with its name, seconds and result:
      bf16 and f32, kernels against plain, with the hand kernels each
      launched; the spectral norm and ResNet's transposed conv against
      restatements;
-  18. profile (only with --profile): a warm run of the slice's tile pipeline
+  18. dp: data parallelism on the one card.  The train phase's command for
+     four steps through ``python -m torch.distributed.run --standalone
+     --nproc_per_node 1 -m neuroclear_tpu_torch.train_onecube`` (NCCL at a
+     world of one): the process group up and the model wrapped, its
+     launches per step the train phase's, its checkpoint and logged losses
+     those of two plain runs of the command within their own distance
+     (bitwise where they are), its step median beside the train phase's.
+     Then two ranks of this script (``--dp-rank``) over gloo on cuda:0
+     under torchrun: the production Apollo step at 108^3 in bf16, four
+     steps, and the study's Athena command from its trained nets, two
+     steps, each first step's averaged gradients and losses against the
+     single-process ``--grad_accum 2`` step from the same seed, crops and
+     draws (bitwise, else within a rerun's distance); ``--norm batch`` at
+     108^3 in f32, two steps, against the single-process batched step on
+     both crops, with the refreshed running statistics; after every step
+     each parameter, buffer and Adam tensor bitwise equal on both ranks
+     (checksums all-reduced as (c, -c) maxima); each rank's launches exact;
+     the slice's tile pipeline sharded over the ranks (``n_devices=2``,
+     rank 0 one card's tile batches 0, 2 and 4 of each slab, five tiles,
+     rank 1 batches 1 and 3, four) against one card within 1
+     LSB, both ranks' volumes equal; the gloo step medians (two processes
+     sharing one card, not a multi-card speed) and the bytes all-reduced
+     per step;
+  19. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv), three warm cubes of the per-cube
      loop (with its copies), a warm training step, a warm study step and a
      warm Athena step under torch.profiler, device time by kernel and the
@@ -549,6 +572,43 @@ SPECTRAL_REL = 1e-5
 # nn.ConvTranspose2d(padding=1, output_padding=1), f32 sums
 TRANSPOSE_REL = 1e-5
 
+# dp: data parallelism on the one card.  NCCL at a world of one through the
+# real launcher (python -m torch.distributed.run --nproc_per_node 1 -m
+# neuroclear_tpu_torch.train_onecube) with the train phase's command for
+# DP_ITERS steps, against two plain runs of it; then two ranks of this
+# script over gloo on cuda:0 (NCCL refuses two ranks on one card; gloo
+# all-reduces CUDA tensors through the host): the train phase's Apollo step,
+# the batchnorm phase's flags in f32 (TF32 off), the athena phase's Athena
+# command from its trained nets, and the slice's tile pipeline sharded over
+# the ranks.  The data-parallel step against the single-process
+# --grad_accum 2 step from the same seed, crops and draws: bitwise (two
+# addends commute; the division is the accumulator's), else no farther than
+# a rerun of it.  Batch norm over the ranks against the single-process
+# batched step on torch.cat of the two crops: 1e-5 relative L2 per net
+# (the prediction; only the order of f32 sums differs, the CPU test measured
+# at most 1.5e-6), G_A within the step's usual 1e-2 (its ReLU masks flip on
+# the sums' last bits: 8.5e-4 on the CPU), the refreshed running statistics
+# within 1e-5; the limits below.  The sharded pipeline against one card: DP_LSB (only the
+# f32 order in which the ranks' deltas join changes; JAX's own bound,
+# tests/test_dicing_assemble.py:140).  The batch-norm limits are set from the
+# first reading on an H100 at seed 0, where the prediction (1e-5 per net)
+# held for the losses (1.8e-6) and the refresh (3.8e-8) but not for the
+# gradients: G_B and the discriminators 8.2e-5 to 1.05e-3 (D_B_lateral), G_A
+# 5.5e-3, against 1.5e-6 and 8.5e-4 on the CPU (the ranks' convs run at
+# batch one, the reference's at batch two; not isolated further).  Limits at
+# about five and four times those; per-rank statistics move G_B alone by 3e-2
+# and the rest by 0.5-1.2 (CPU).
+DP_ITERS, DP_WORLD, DP_TIMEOUT_S = 4, 2, 400
+DP_TASKS = ("apollo", "batchnorm", "athena", "dice")
+DP_BN_ARGS = [*BATCHNORM_ARGS, "--precision", "float32"]
+DP_BN_ITERS, DP_ATHENA_ITERS = 2, 2
+DP_BN_LOSS_REL, DP_BN_REFRESH_REL = 1e-5, 1e-5
+DP_BN_GRAD_REL, DP_BN_G_A_REL = 5e-3, 2e-2
+DP_LSB = 1
+# --norm batch in f32: no instance norm, and the W-pair conv's gate is
+# bf16-only, so no hand kernel launches
+F32_BATCHNORM_STEP_LAUNCHES = {k: 0 for k in STEP_LAUNCHES}
+
 T_START = time.monotonic()
 
 
@@ -731,16 +791,24 @@ def check_stats(fn, args, ref, mag, glue, label: str) -> tuple:
     return out
 
 
-def device_operations(fn) -> list:
+def device_operations(fn, tries: int = 3) -> list:
     """The device rows (name, ms, count) of one call of a warm ``fn`` under
-    torch.profiler."""
+    torch.profiler.  A trace with no device row at all is the profiler's
+    failure, not the call's (an H100 machine's CUPTI tracing once came up
+    empty on the first profile of a run): it is taken again, up to
+    ``tries`` times, and an empty last trace is returned as it is."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _device_rows(prof)
+    for attempt in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        if rows:
+            break
+        log(f"  the profiler traced no device operation (try {attempt + 1} of {tries})")
+    return rows
 
 
 def one_device_operation(fn, label: str) -> None:
@@ -2786,6 +2854,517 @@ def run_zoo(seed: int, dev) -> dict:
     return {"nets": report}
 
 
+# ------------------------------------------------------------------------ dp
+
+
+def _torchrun(nproc: int, target: list, timeout: float, label: str) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc`` on ``target`` from the repo's root; its standard output (the
+    output's tail raises on a nonzero exit).  ``--standalone`` takes a free
+    port; a hang is killed at ``timeout`` seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(nproc), *target], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} exited {proc.returncode}:\n{proc.stdout[-6000:]}\n"
+                             f"{proc.stderr[-8000:]}")
+    return proc.stdout
+
+
+def _ckpt_arrays(ckpt_dir: str, suffix: str) -> dict:
+    """Every array of the ``suffix`` checkpoint (nets and optimizer)."""
+    out = {}
+    for f in sorted(os.listdir(ckpt_dir)):
+        if f.startswith(suffix + "_") and f.endswith(".npz"):
+            with np.load(os.path.join(ckpt_dir, f)) as data:
+                out.update({f"{f}:{k}": data[k] for k in data.files})
+    return out
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    if set(a) != set(b):
+        raise AssertionError(f"checkpoints with different arrays: {sorted(set(a) ^ set(b))}")
+    worst = 0.0
+    for k in a:
+        if np.array_equal(a[k], b[k], equal_nan=True):  # the schedules hold an inf
+            continue
+        d = np.abs(a[k].astype(np.float64) - b[k].astype(np.float64))
+        worst = max(worst, float(np.where(np.isfinite(d), d, np.inf).max()))
+    return worst
+
+
+def _logged_losses(ckpt_dir: str) -> list:
+    """The loss lines of ``loss_log.txt`` without their timings."""
+    with open(os.path.join(ckpt_dir, "loss_log.txt")) as f:
+        return [ln.split(") ", 1)[1].strip() for ln in f if ln.startswith("(epoch")]
+
+
+def dp_nccl(seed: int, tmp: str) -> dict:
+    """The train phase's command for DP_ITERS steps twice in this process,
+    then once under ``torchrun --nproc_per_node 1`` (NCCL at a world of one):
+    its launches per step the train phase's, its checkpoint and losses
+    those of the plain runs within their own distance (bitwise where they
+    are)."""
+    data = os.path.join(tmp, "nccl_data")
+    tiffio.imwrite(os.path.join(data, "volume.tif"), synthetic_volume(seed, TRAIN_VOLUME))
+    ckpt = os.path.join(tmp, "nccl_ckpt")
+    argv = ["--dataroot", data, "--checkpoints_dir", ckpt, *TRAIN_ARGS, "--max_iters",
+            str(DP_ITERS), "--seed", str(seed), "--print_freq", "1"]
+    before = kernel_ops.launches()
+    plain = [train_onecube.main([*argv, "--name", f"plain{i}"]) for i in range(2)]
+    plain_launches = {k: v - before[k] for k, v in kernel_ops.launches().items()}
+    out = _torchrun(1, ["-m", "neuroclear_tpu_torch.train_onecube", *argv, "--name", "nccl"],
+                    DP_TIMEOUT_S, "train_onecube under torchrun (NCCL, world 1)")
+    if "data parallel over 1 ranks (nccl)" not in out:
+        raise AssertionError("the torchrun run did not go data-parallel over NCCL")
+    launches = json.loads(out.split("kernel launches: ", 1)[1].splitlines()[0])
+    secs = json.loads(out.split("step seconds (device clock): ", 1)[1].splitlines()[0])
+    expected = {k: DP_ITERS * v for k, v in STEP_LAUNCHES.items()}
+    log(f"  NCCL world 1: launches over {DP_ITERS} steps {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"NCCL world-1 launch counts {launches} != {expected}")
+    dirs = {n: os.path.join(ckpt, next(d for d in os.listdir(ckpt) if d.endswith("_" + n)))
+            for n in ("plain0", "plain1", "nccl")}
+    arrays = {n: _ckpt_arrays(d, f"iter_{DP_ITERS}") for n, d in dirs.items()}
+    rerun = _max_abs(arrays["plain0"], arrays["plain1"])
+    dist_ = _max_abs(arrays["plain0"], arrays["nccl"])
+    same_losses = _logged_losses(dirs["plain0"]) == _logged_losses(dirs["nccl"])
+    step_ms = _median_ms(secs)
+    plain_ms = _median_ms(plain[0]["step_seconds"])
+    log(f"  NCCL world 1 against the plain run: checkpoint max |diff| {dist_:.3g} (two plain "
+        f"runs: {rerun:.3g}); logged losses {'equal' if same_losses else 'DIFFER'}; step "
+        f"median {step_ms:.1f} ms (the plain run's {plain_ms:.1f} ms)")
+    if dist_ > rerun or (rerun == 0 and not same_losses):
+        raise AssertionError(f"NCCL world 1 off the plain run: {dist_} > {rerun} or losses")
+    total = {k: launches[k] + plain_launches[k] for k in launches}
+    return {"launches": total, "step_ms": step_ms, "plain_ms": plain_ms, "dist": dist_,
+            "rerun": rerun}
+
+
+def dp_generator(seed: int, rank: int) -> torch.Generator:
+    """The run generator of a rank: the one seed on every rank, as the
+    trainer's (crops and probe draws)."""
+    return torch.Generator().manual_seed(seed)
+
+
+def _state_tensors(model) -> list:
+    tensors = []
+    for n in model.model_names:
+        tensors += list(model.nets[n].parameters()) + list(model.nets[n].buffers())
+    for optim in (model.optim_g, model.optim_d):
+        for group in optim.param_groups:
+            for p in group["params"]:
+                tensors += [v for v in optim.state.get(p, {}).values()
+                            if isinstance(v, torch.Tensor)]
+    return tensors
+
+
+def dp_unequal(model) -> int:
+    """How many of the model's parameters, buffers and Adam tensors differ
+    between the ranks: two int64 checksums of each tensor's bits, their
+    maxima and minima over the ranks by one all-reduce of (c, -c)."""
+    sums = []
+    for t in _state_tensors(model):
+        bits = t.detach().float().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 65521 + 1
+        sums.append(torch.stack([bits.sum(), (bits * w).sum()]).cpu())
+    c = torch.stack(sums)
+    both = torch.cat([c, -c])
+    torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX)
+    hi, lo = both[:len(c)], -both[len(c):]
+    return int((hi != lo).any(dim=1).sum())
+
+
+def _dp_steps(model, sample, gen, crop: int, iters: int, after_first=None) -> dict:
+    """``iters`` data-parallel steps (``sample(gen)``, then the probe draws
+    from ``gen``) with each kernel's launches, the step times (CUDA events)
+    and, after every step, the tensors that differ between the ranks; the
+    first step's averaged (losses, g_grads, d_grads) kept
+    (``after_first(model, first)`` runs after it)."""
+    reduce, first = model.reduce_gradients, []
+
+    def keep(losses, g, d):
+        out = reduce(losses, g, d)
+        if not first:
+            first.append(out)
+        return out
+
+    model.reduce_gradients = keep
+    kernel_ops.reset_launches()
+    launches, unequal, events = None, [], []
+    for i in range(iters):
+        real = sample(gen)
+        draws = model.draw_probes((crop,) * 3, gen)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.optimize_parameters(real, draws)
+        end.record()
+        events.append((start, end))
+        if i == iters - 1:
+            launches = kernel_ops.launches()
+        if i == 0 and after_first is not None:
+            after_first(model, first[0])
+        unequal.append(dp_unequal(model))
+    torch.cuda.synchronize()
+    model.reduce_gradients = reduce
+    return {"launches": launches, "step_ms": [a.elapsed_time(b) for a, b in events],
+            "unequal": unequal, "first": first[0]}
+
+
+def _grad_dict(model, g_grads, d_grads) -> dict:
+    return {k: v.double() for k, v in _grads_by_name(model, g_grads, d_grads).items()}
+
+
+def _compare_grads(model, got, ref_losses, ref_g, ref_d) -> dict:
+    """The averaged step against a single-process reference: tensors not
+    bitwise equal, relative L2 pooled per net, losses' largest relative
+    difference."""
+    losses, g, d = got
+    a, b = _grad_dict(model, g, d), _grad_dict(model, ref_g, ref_d)
+    per_net = {n: _rel_l2(a, b, [k for k in b if k.startswith(n + ".")])
+               for n in model.model_names}
+    loss_rel = max(abs(float(losses[k]) - float(ref_losses[k])) / max(abs(float(ref_losses[k])),
+                                                                   1e-30)
+                   for k in ref_losses)
+    return {"unequal": sum(not torch.equal(a[k], b[k]) for k in b), "tensors": len(b),
+            "per_net": per_net, "loss_rel": loss_rel,
+            "losses_equal": all(torch.equal(losses[k].float(), ref_losses[k].float())
+                                for k in ref_losses)}
+
+
+def _dp_accum_task(make, dataset, crop: int, iters: int, seed: int, table: dict) -> dict:
+    """A model (``make()``) under DataParallel for ``iters`` steps; on rank
+    0 the first step against the single-process ``--grad_accum 2`` step of
+    a second model from the same weights on the same two crops and draws
+    (and that step's rerun distance where they differ)."""
+    from neuroclear_tpu_torch.parallel.train_parallel import DataParallel, rank
+
+    model = make()
+    dp = DataParallel(model)
+    gen = dp_generator(seed, rank())
+    ref = None
+    if rank() == 0:
+        refm = make()
+        g2 = torch.Generator()
+        g2.set_state(gen.get_state())
+        geometry = [dataset.draws(g2) for _ in range(2)]
+        draws = refm.draw_probes((crop,) * 3, g2)
+
+        def accum():
+            losses, *_, g, d = refm.accumulate(lambda i: dataset.crop(*geometry[i]), 2, draws)
+            return losses, g, d
+        ref = accum()
+    run = _dp_steps(model, dp.batch_sampler(dataset), gen, crop, iters)
+    res = {"launches": run["launches"], "step_ms": run["step_ms"], "unequal": run["unequal"],
+           "expected": {k: iters * v for k, v in table.items()},
+           "allreduce_bytes": 4 * (sum(p.numel() for p in model.g_params + model.d_params)
+                                   + len(model.loss_names))}
+    if ref is not None:
+        res["accum"] = _compare_grads(model, run["first"], *ref)
+        if res["accum"]["unequal"] or not res["accum"]["losses_equal"]:
+            again = accum()
+            res["accum"]["rerun"] = _compare_grads(model, again, *ref)["per_net"]
+    return res
+
+
+def dp_apollo(seed: int, dev, rank: int) -> dict:
+    """The production bf16 Apollo step at 108^3 (the train phase's flags)."""
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *TRAIN_ARGS])
+
+    def make():
+        model = ApolloModel(opt, dev)
+        model.init_weights(seed, "kaiming")
+        return model
+    dataset = SingleVolumeDataset(synthetic_volume(seed, TRAIN_VOLUME), (CROP,) * 3,
+                                  opt.preprocess, dev)
+    return _dp_accum_task(make, dataset, CROP, DP_ITERS, seed, STEP_LAUNCHES)
+
+
+def dp_athena(seed: int, dev, rank: int) -> dict:
+    """The JAX study's Athena command (128^3, --remat, bf16) from its
+    trained nets."""
+    flats = athena_flats()
+    preprocess = ATHENA_ARGS[ATHENA_ARGS.index("--preprocess") + 1]
+    dataset = SingleVolumeDataset(synthetic_volume(seed + 4, ATHENA_VOLUME),
+                                  (ATHENA_CROP,) * 3, preprocess, dev)
+    return _dp_accum_task(lambda: athena_model(flats, dev), dataset, ATHENA_CROP,
+                          DP_ATHENA_ITERS, seed, ATHENA_REMAT_STEP_LAUNCHES)
+
+
+def dp_batchnorm(seed: int, dev, rank: int) -> dict:
+    """``--norm batch`` at 108^3 in f32: on rank 0 the first averaged step
+    against the single-process batched step on both crops (``torch.cat``),
+    and the running statistics after its refresh against a refresh of that
+    batch from the data-parallel model's updated weights."""
+    from neuroclear_tpu_torch.parallel.train_parallel import DataParallel
+
+    opt = train_options.build_parser().parse_args(["--dataroot", "unused", *DP_BN_ARGS])
+
+    def make():
+        model = ApolloModel(opt, dev)
+        model.init_weights(seed, "kaiming")
+        return model
+    dataset = SingleVolumeDataset(synthetic_volume(seed, TRAIN_VOLUME), (CROP,) * 3,
+                                  opt.preprocess, dev)
+    model = make()
+    dp = DataParallel(model)
+    gen = dp_generator(seed, rank)
+    ref, checks = None, {}
+    if rank == 0:
+        refm = make()
+        g2 = torch.Generator()
+        g2.set_state(gen.get_state())
+        batch = torch.cat([dataset.crop(*dataset.draws(g2)) for _ in range(2)])
+        draws = refm.draw_probes((CROP,) * 3, g2)
+        with norms.local_stats():
+            losses, *_, g, d = refm.gradients(batch, draws)
+        ref = (losses, g, d)
+
+        def after_first(model, first):
+            checks["batched"] = _compare_grads(model, first, *ref)
+            with torch.no_grad():
+                for p, q in zip(refm.g_params + refm.d_params, model.g_params + model.d_params):
+                    p.copy_(q)
+            with norms.local_stats():
+                refm.refresh_norm_stats(batch)
+            checks["refresh_rel"] = _stats_rel(model, refm)
+    else:
+        after_first = None
+    run = _dp_steps(model, dp.batch_sampler(dataset), gen, CROP, DP_BN_ITERS, after_first)
+    return {"launches": run["launches"], "step_ms": run["step_ms"], "unequal": run["unequal"],
+            "expected": {k: DP_BN_ITERS * v for k, v in F32_BATCHNORM_STEP_LAUNCHES.items()},
+            **checks}
+
+
+def dp_dice(seed: int, dev, rank: int) -> dict:
+    """The slice's tile pipeline sharded over the ranks (bf16, the
+    kernels): launches per rank, every rank's output equal, and on rank 0
+    the single-card pipeline's output against it."""
+    import hashlib
+
+    from neuroclear_tpu_torch.parallel.train_parallel import world
+
+    vol = synthetic_volume(seed)
+    roi, overlap, batch = 120, 15, 2
+    vp = pad_for_dicing(vol, roi, overlap)
+    grid = DiceGrid(vp.shape, roi, overlap, 10)
+    net = UNetDeconv(1, 1)
+    net.load_state_dict(params_from_numpy(init_flat(UNetDeconv(1, 1), seed=seed), net))
+    net.to(dev)
+    kw = dict(tile_batch=batch, precision="bfloat16", out_dtype=np.uint16,
+              orig_shape=vol.shape, device=dev)
+    pipe = DiceInferencePipeline(net, grid, dtype_inv_scale(vp.dtype), n_devices=world(), **kw)
+    per_slab = grid.y_steps * grid.x_steps
+    # the rank deals one card's batches: batches rank, rank + W, ... of a slab
+    sizes = [min(batch, per_slab - j) for j in range(0, per_slab, batch)][rank::world()]
+    mine, batches = sum(sizes), grid.z_steps * len(sizes)
+    kernel_ops.reset_launches()
+    out = pipe.run_streaming(vp)
+    launches = kernel_ops.launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run_streaming(vp)
+    seconds = time.perf_counter() - t0
+    res = {"launches": launches, "expected": pipeline_launches(batches), "tiles": mine,
+           "tiles_per_slab": per_slab, "batches": batches, "seconds": seconds,
+           "sha": hashlib.sha256(out.tobytes()).hexdigest()}
+    if rank == 0:
+        one = DiceInferencePipeline(net, grid, dtype_inv_scale(vp.dtype), **kw)
+        res["one_card"] = lsb_stats(out, one.run_streaming(vp).astype(np.int64))
+        res["dealing"] = tile_dealing(one, vp, world())
+    return res
+
+
+@torch.inference_mode()
+def tile_dealing(pipe, vp: np.ndarray, world: int) -> dict:
+    """The first slab's tiles through ``pipe``'s generator in one card's
+    batches, then dealt to ``world`` ranks tile by tile (JAX's
+    ``_make_sharded_slab_step``: rank d tiles d, d + W, ...) and batch by
+    batch (the port's): per dealing, how many tiles' outputs differ from
+    their one-card output and by how many LSB at most."""
+    g, n = pipe.grid, pipe.tile_batch
+    b, ext = g.border_cut, g.roi_size + 2 * g.border_cut
+    slab = np.pad(vp[:ext - b], ((b, 0), (b, b), (b, b)), mode="reflect")
+    offs = [(y * g.step, x * g.step) for y in range(g.y_steps) for x in range(g.x_steps)]
+    x = torch.from_numpy(slab.astype(np.float32)).to(pipe.device)
+
+    def outputs(batches):
+        out = {}
+        for batch in batches:
+            tiles = torch.stack([x[:, y:y + ext, z:z + ext] for y, z in (offs[t] for t in batch)])
+            y = pipe._generate((tiles * pipe.inv_scale).to(pipe.compute_dtype)[..., None])
+            out.update(zip(batch, y))
+        return out
+
+    def deal(order):
+        return [order[j:j + n] for j in range(0, len(order), n)]
+    ref = outputs(deal(list(range(len(offs)))))
+    by_tile = [b_ for r in range(world) for b_ in deal(list(range(r, len(offs), world)))]
+    by_batch = deal(list(range(len(offs))))
+    res = {}
+    for name, batches in (("by_tile", by_tile), ("by_batch", [bt for r in range(world)
+                                                              for bt in by_batch[r::world]])):
+        got = outputs(batches)
+        diffs = [float((got[t] - ref[t]).abs().max()) * 65535 for t in ref]
+        res[name] = {"tiles_differing": sum(d > 0 for d in diffs), "tiles": len(diffs),
+                     "max_lsb": max(diffs)}
+    return res
+
+
+DP_RANK_TASKS = {"apollo": dp_apollo, "batchnorm": dp_batchnorm, "athena": dp_athena,
+                 "dice": dp_dice}
+
+
+def dp_rank_main(args) -> int:
+    """One rank of ``dp_gloo``: gloo on cuda:0 (``backend="gloo"``), the
+    fault ``module:function`` installed first where given, the tasks run,
+    the results written to ``<dir>/rank<r>.json``."""
+    import importlib
+
+    from neuroclear_tpu_torch.parallel import train_parallel
+
+    faulthandler.dump_traceback_later(DP_TIMEOUT_S, exit=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    if not train_parallel.maybe_initialize_distributed(dev, backend="gloo"):
+        raise SystemExit("--dp-rank runs under torch.distributed.run")
+    rank = train_parallel.rank()
+    if args.dp_fault:
+        module, fn = args.dp_fault.split(":")
+        getattr(importlib.import_module(module), fn)(rank)
+    out = {}
+    for task in args.dp_tasks.split(","):
+        t0 = time.perf_counter()
+        out[task] = DP_RANK_TASKS[task](args.seed, dev, rank)
+        out[task]["seconds_task"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    with open(os.path.join(args.dp_rank, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def dp_gloo(seed: int, tmp: str, tasks=DP_TASKS, fault=None) -> list:
+    """Two ranks of this script (``--dp-rank``) over gloo on the one card,
+    under torchrun: [rank 0's results, rank 1's] by task."""
+    d = tempfile.mkdtemp(dir=tmp, prefix="gloo")
+    _torchrun(DP_WORLD, [os.path.abspath(__file__), "--dp-rank", d, "--seed", str(seed),
+                         "--dp-tasks", ",".join(tasks)] + (["--dp-fault", fault] if fault else []),
+              DP_TIMEOUT_S, f"the gloo ranks ({','.join(tasks)}, fault {fault})")
+    out = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _judge_launches(task: str, ranks: list) -> None:
+    for r, res in enumerate(ranks):
+        if res["launches"] != res["expected"]:
+            raise AssertionError(f"{task} rank {r}: launches {res['launches']} != "
+                                 f"{res['expected']}")
+
+
+def _judge_together(task: str, ranks: list) -> None:
+    for r, res in enumerate(ranks):
+        if any(res["unequal"]):
+            raise AssertionError(f"{task}: the ranks' state differs after the steps "
+                                 f"{res['unequal']} (tensors per step)")
+
+
+def judge_dp_accum(task: str, ranks: list) -> None:
+    """Launches exact on each rank, the ranks' state equal after every step,
+    and rank 0's first averaged step the ``--grad_accum 2`` step: bitwise,
+    or no farther from it than a rerun of that step."""
+    _judge_launches(task, ranks)
+    _judge_together(task, ranks)
+    acc = ranks[0]["accum"]
+    if acc["unequal"] or not acc["losses_equal"]:
+        rerun = acc["rerun"]
+        if not any(rerun.values()) or any(v > rerun[n] for n, v in acc["per_net"].items()):
+            raise AssertionError(f"{task}: the averaged step is not the --grad_accum 2 step: "
+                                 f"{acc['unequal']} of {acc['tensors']} tensors differ, per "
+                                 f"net {acc['per_net']} (a rerun of that step: {rerun}), "
+                                 f"losses {acc['loss_rel']:.3g}")
+
+
+def judge_dp_batchnorm(ranks: list) -> None:
+    """No kernel (f32), the ranks together, the averaged step the batched
+    step (losses within DP_BN_LOSS_REL, gradients per net within
+    DP_BN_GRAD_REL, G_A's within DP_BN_G_A_REL) and the refreshed
+    statistics within DP_BN_REFRESH_REL."""
+    _judge_launches("batchnorm", ranks)
+    _judge_together("batchnorm", ranks)
+    b = ranks[0]["batched"]
+    off = {n: v for n, v in b["per_net"].items()
+           if v > (DP_BN_G_A_REL if n == "G_A" else DP_BN_GRAD_REL)}
+    if (off or b["loss_rel"] > DP_BN_LOSS_REL
+            or ranks[0]["refresh_rel"] > DP_BN_REFRESH_REL):
+        raise AssertionError(f"batch norm over the ranks is not the batched step: per net "
+                             f"{b['per_net']}, losses {b['loss_rel']:.3g}, refresh "
+                             f"{ranks[0]['refresh_rel']:.3g}")
+
+
+def judge_dp_dice(ranks: list) -> None:
+    _judge_launches("dice", ranks)
+    if len({res["sha"] for res in ranks}) != 1:
+        raise AssertionError("the ranks' assembled volumes differ")
+    one = ranks[0]["one_card"]
+    if one["max_lsb"] > DP_LSB or ranks[0]["dealing"]["by_batch"]["tiles_differing"]:
+        raise AssertionError(f"the sharded pipeline off the single card: {one}, tiles "
+                             f"{ranks[0]['dealing']}")
+
+
+def judge_dp(task: str, ranks: list) -> None:
+    """The checks of ``task`` on the ranks' results ({task: result} each)."""
+    per = [r[task] for r in ranks]
+    if task in ("apollo", "athena"):
+        judge_dp_accum(task, per)
+    elif task == "batchnorm":
+        judge_dp_batchnorm(per)
+    else:
+        judge_dp_dice(per)
+
+
+def run_dp(seed: int, dev, tmp: str, train_ms: float) -> dict:
+    """NCCL at a world of one through torchrun (``dp_nccl``), then two gloo
+    ranks on the card for every task (``dp_gloo``), each judged."""
+    torch.cuda.empty_cache()  # the ranks are processes of their own on this card
+    nc = dp_nccl(seed, tmp)
+    log(f"  the train phase's step median {train_ms:.1f} ms beside NCCL world 1's "
+        f"{nc['step_ms']:.1f} ms")
+    ranks = dp_gloo(seed, tmp)
+    for task in DP_TASKS:
+        per = [r[task] for r in ranks]
+        log(f"  gloo, 2 ranks on cuda:0, {task}: " + json.dumps(
+            [{k: v for k, v in res.items() if k not in ("expected", "sha")} for res in per]))
+        judge_dp(task, ranks)
+    a = ranks[0]["apollo"]
+    ms = [float(np.median(r["apollo"]["step_ms"][1:])) for r in ranks]
+    log(f"  gloo step medians per rank {[round(m, 1) for m in ms]} ms at {CROP}^3 bf16: two "
+        f"processes sharing one card, not a multi-card speed; all-reduced per step "
+        f"{a['allreduce_bytes']} bytes ({a['allreduce_bytes'] / 2 ** 20:.1f} MiB, the G and D "
+        f"gradients in f32 and the losses)")
+    d = [r["dice"] for r in ranks]
+    log(f"  sharded pipeline: {d[0]['tiles_per_slab']} tiles a slab, rank 0 takes "
+        f"{d[0]['tiles']} in {d[0]['batches']} batches, rank 1 {d[1]['tiles']} in "
+        f"{d[1]['batches']}; against one card {d[0]['one_card']}; second run "
+        f"{d[0]['seconds']:.3f} s; the first slab's tiles against their one-card outputs, "
+        f"dealt tile by tile as JAX deals them {d[0]['dealing']['by_tile']}, batch by batch "
+        f"{d[0]['dealing']['by_batch']}")
+    launches = dict(nc["launches"])
+    for r in ranks:
+        for task in DP_TASKS:
+            for k, v in r[task]["launches"].items():
+                launches[k] += v
+    return {"launches": launches, "nccl": nc, "gloo_ms": ms, "bytes": a["allreduce_bytes"],
+            "dice": d[0]["one_card"]}
+
+
 def nvidia_smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2798,7 +3377,15 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a warm run of the slice's tile pipeline (without and "
                          "with the dense-K conv) and a warm training step")
+    ap.add_argument("--dp-rank", default=None,
+                    help="run as one gloo rank of the dp phase (under torchrun), writing to "
+                         "this directory")
+    ap.add_argument("--dp-tasks", default=",".join(DP_TASKS), help="the dp rank's tasks")
+    ap.add_argument("--dp-fault", default=None,
+                    help="module:function installing a fault in the dp rank")
     args = ap.parse_args(argv)
+    if args.dp_rank:
+        return dp_rank_main(args)
     faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)  # a hang ends the run
 
     with Phase("environment") as ph:
@@ -2932,6 +3519,16 @@ def main(argv=None) -> int:
                      f"{ZOO_F32_OUT} / {ZOO_F32_GRAD} (f32) and no worse than plain (bf16); "
                      "spectral and transposed-conv restatements hold")
 
+    with Phase("dp") as ph, tempfile.TemporaryDirectory() as tmp:
+        dp = run_dp(args.seed, dev, tmp, tr["step_ms"])
+        ph.result = (f"NCCL world 1 through torchrun: launches exact, checkpoint "
+                     f"{dp['nccl']['dist']:.3g} from the plain run (rerun "
+                     f"{dp['nccl']['rerun']:.3g}), step {dp['nccl']['step_ms']:.1f} ms; gloo, 2 "
+                     f"ranks on one card: Apollo, --norm batch and Athena steps and the sharded "
+                     f"pipeline checked, launches exact per rank, ranks bitwise together; "
+                     f"{dp['bytes']} bytes all-reduced per Apollo step; sharded pipeline "
+                     f"against one card {dp['dice']}")
+
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
@@ -2968,7 +3565,8 @@ def main(argv=None) -> int:
                    "trained_dice": tg["launches"][name], "vanilla": vn["launches"][name],
                    "vanilla_dice": vn["dice_launches"][name],
                    "batchnorm": bn["launches"][name],
-                   "batchnorm_dice": bn["dice_launches"][name], "zoo": zo["launches"][name]}
+                   "batchnorm_dice": bn["dice_launches"][name], "zoo": zo["launches"][name],
+                   "dp": dp["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,

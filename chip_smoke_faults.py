@@ -42,8 +42,14 @@ plain path (``batchnorm_dice``) with a ``TestModel`` that switches the
 generator to its running statistics without ``--eval``; ResNet's transposed
 conv against the restated scatter (``check_resnet_transpose``) with the
 transpose's kernel unflipped (a correlation, as JAX's ``conv_transpose``
-computes without the flip).  It exits nonzero unless the runs as they are
-pass their checks and every fault fails one.
+computes without the flip).  Last, the dp phase's gloo checks
+(``dp_failures``: two ranks of ``chip_smoke.py --dp-rank`` on the card with a
+fault installed in each): one rank skipping the gradient all-reduce (the
+ranks' state must diverge), the run generator seeded with seed + rank (the
+step is no longer the ``--grad_accum 2`` step), batch norm on per-rank
+statistics (no longer the batched step), one rank's slab delta dropped (the
+sharded pipeline leaves its one-LSB bound).  It exits nonzero unless the
+runs as they are pass their checks and every fault fails one.
 """
 
 from __future__ import annotations
@@ -450,6 +456,72 @@ def _batchnorm_checkpoint(seed, root) -> str:
     return path
 
 
+# The dp phase's faults, installed in each gloo rank (``--dp-fault
+# chip_smoke_faults:<function>``, called with the rank before its tasks):
+# none may hang a collective, so a faulty rank still joins every one.
+
+
+def dp_fault_reduce_skipped(rank):
+    """Rank 1 joins the gradient all-reduce on a copy and steps on its own
+    gradients: the ranks' parameters diverge."""
+    from neuroclear_tpu_torch.parallel import train_parallel
+
+    reduce = train_parallel.DataParallel.reduce
+
+    def fn(self, losses, g, d):
+        out = reduce(self, losses, [x.clone() for x in g], [x.clone() for x in d])
+        return (out[0], list(g), list(d)) if rank == 1 else out
+    train_parallel.DataParallel.reduce = fn
+
+
+def dp_fault_seed_plus_rank(rank):
+    """Each rank's run generator seeded with seed + rank: its crop and probe
+    draws are not the --grad_accum step's."""
+    main = sys.modules["__main__"]
+    main.dp_generator = lambda seed, r: torch.Generator().manual_seed(seed + r)
+
+
+def dp_fault_local_batch_stats(rank):
+    """Batch norm on each rank's own statistics (DataParallel's cross-rank
+    sum never installed)."""
+    norms.set_cross_rank = lambda fn, world: None
+
+
+def dp_fault_delta_dropped(rank):
+    """Rank 1's slab delta zeroed before the all-reduce: its tiles are
+    missing from the assembled volume."""
+    from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
+
+    def merge(delta):
+        if rank == 1:
+            delta.zero_()
+        torch.distributed.all_reduce(delta)
+    DiceInferencePipeline._merge = staticmethod(merge)
+
+
+DP_FAULTS = [("one rank skipping the gradient all-reduce", "dp_fault_reduce_skipped", "apollo"),
+             ("the run generator seeded with seed + rank", "dp_fault_seed_plus_rank", "apollo"),
+             ("batch norm on per-rank statistics", "dp_fault_local_batch_stats", "batchnorm"),
+             ("one rank's slab delta dropped", "dp_fault_delta_dropped", "dice")]
+
+
+def dp_failures(seed) -> bool:
+    """The dp phase's gloo checks with each fault (each must fail; the
+    phase as it is runs in chip_smoke.py); returns whether all did."""
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn, task in DP_FAULTS:
+            ranks = cs.dp_gloo(seed, tmp, (task,), f"chip_smoke_faults:{fn}")
+            try:
+                cs.judge_dp(task, ranks)
+            except AssertionError as e:
+                cs.log(f"== {label}: the dp {task} check fails: {str(e)[:300]}")
+            else:
+                cs.log(f"== {label}: the dp {task} check passes")
+                ok = False
+    return ok
+
+
 def zoo_failures(seed, dev) -> bool:
     """The zoo slice's checks as they are (each must pass) and with each of
     their faults (each must fail); returns whether all did as they must."""
@@ -630,6 +702,7 @@ def main(argv=None) -> int:
     ok &= study_failures(args.seed, dev)
     ok &= new_model_failures(args.seed, dev)
     ok &= zoo_failures(args.seed, dev)
+    ok &= dp_failures(args.seed)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

@@ -33,6 +33,7 @@ import torch
 from .. import resolve_device
 from ..nn import norms
 from ..nn.schedulers import LRController
+from ..parallel import train_parallel
 from ..utils.weights import count_params, flat_from_module, init_flat, jax_leaves, load_npz, \
     params_from_numpy, to_numpy
 from . import gan_common as gc
@@ -153,7 +154,10 @@ class BaseModel:
     (losses, *VISUAL_NAMES[1:], g_grads, d_grads) at the current parameters
     and, where its step draws probes, ``G_PROBES``/``D_PROBES`` as (kind,
     volume, axis, discriminator).  ``plain`` builds the nets on the kernels'
-    plain versions (the reference a run on the card is held against)."""
+    plain versions (the reference a run on the card is held against).
+    ``reduce_gradients`` (None in one process; ``DataParallel.reduce`` under
+    data parallelism) maps a step's (losses, g_grads, d_grads) to their
+    means over the ranks before the update."""
 
     G_NAMES: list = []
     D_NAMES: list = []
@@ -180,6 +184,7 @@ class BaseModel:
         self.base_lr = opt.lr
         self.lr_controllers = []
         self.visuals = {}
+        self.reduce_gradients = None
 
     @property
     def model_names(self) -> list:
@@ -247,7 +252,11 @@ class BaseModel:
         return optim_arrays(self._optim_groups(), self.lr_controllers)
 
     def save_networks(self, suffix: str) -> list:
-        """Every net and ``{suffix}_optim.npz``; returns the paths."""
+        """Every net and ``{suffix}_optim.npz``; returns the paths.  Under
+        data parallelism rank 0 writes (every rank holds the same state) and
+        the others return []."""
+        if not train_parallel.is_main():
+            return []
         paths = save_networks(self.nets, self.save_dir, suffix)
         path = os.path.join(self.save_dir, f"{suffix}_optim.npz")
         save_optim(path, self._optim_groups(), self.lr_controllers)
@@ -366,11 +375,20 @@ class BaseModel:
                     self.nets[name](d_in)
         norms.ema_update_stats(stats)
 
+    def _reduce(self, losses, g_grads, d_grads):
+        if self.reduce_gradients is None:
+            return losses, g_grads, d_grads
+        return self.reduce_gradients(losses, g_grads, d_grads)
+
     def optimize_parameters(self, real: torch.Tensor, draws):
-        """One training step: (losses, *outs); the real crop and the outputs
-        are kept as the visuals, on the device.  Then the batch-norm
-        refresh on the crop."""
+        """One training step on the batch ``real`` (N crops; the losses are
+        means over it, every probe takes one index for all N): (losses,
+        *outs); the real batch and the outputs are kept as the visuals, on
+        the device.  Under data parallelism ``real`` is this rank's share
+        and the losses and gradients are averaged over the ranks before the
+        update.  Then the batch-norm refresh on ``real``."""
         losses, *outs, g_grads, d_grads = self.gradients(real, draws)
+        losses, g_grads, d_grads = self._reduce(losses, g_grads, d_grads)
         self.apply_gradients(g_grads, d_grads)
         self.visuals = dict(zip(self.VISUAL_NAMES, (real, *outs)))
         self.refresh_norm_stats(real)
@@ -382,6 +400,7 @@ class BaseModel:
         real and outputs are kept as the visuals.  Then the batch-norm
         refresh on the last crop, or on all n (``REFRESH_ALL_CROPS``)."""
         losses, real, *outs, g_grads, d_grads = self.accumulate(crop, n, draws)
+        losses, g_grads, d_grads = self._reduce(losses, g_grads, d_grads)
         self.apply_gradients(g_grads, d_grads)
         self.visuals = dict(zip(self.VISUAL_NAMES, (real, *outs)))
         if self.norm == "batch":

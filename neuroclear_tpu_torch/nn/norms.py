@@ -11,7 +11,11 @@
     the buffers: the models refresh them once per step in a pass of their
     own (``BaseModel.refresh_norm_stats``), through ``collect_batch_stats``
     and ``ema_update_stats``, with the biased variance, as the JAX package
-    does.
+    does.  Under data parallelism (``parallel/train_parallel.py``) its
+    statistics are the global batch's, as JAX's over a sharded batch: the
+    two passes' sums (Σx, then Σ(x − mean)²) are all-reduced over the ranks
+    by a function whose backward all-reduces the gradient
+    (``set_cross_rank``).
   * 'spectral' and 'none': identity (spectral norm is applied at the conv
     level in the ``*_SN`` discriminators).
 """
@@ -28,6 +32,10 @@ from ..ops.inorm import activation
 
 EPS = 1e-5
 NORMS = ("instance", "batch", "spectral", "none")
+
+# Under data parallelism: (the differentiable sum over the ranks, the world
+# size); None in one process
+_CROSS_RANK = None
 
 # Collector of batch statistics: while a list is installed here, every
 # BatchNorm forward in batch-statistics mode appends (module, mean, var)
@@ -51,6 +59,41 @@ class collect_batch_stats:
         global _STATS_COLLECTOR
         _STATS_COLLECTOR = self._prev
         return False
+
+
+def set_cross_rank(sum_fn, world: int) -> None:
+    """Take every batch norm's statistics over the ranks: ``sum_fn``
+    all-reduces a tensor (and its gradient), ``world`` ranks hold equal
+    shares of the batch."""
+    global _CROSS_RANK
+    _CROSS_RANK = (sum_fn, world)
+
+
+class local_stats:
+    """Context manager: batch norms take this process's batch statistics
+    inside it (a single-process reference run beside data parallelism)."""
+
+    def __enter__(self):
+        global _CROSS_RANK
+        self._prev, _CROSS_RANK = _CROSS_RANK, None
+
+    def __exit__(self, *exc):
+        global _CROSS_RANK
+        _CROSS_RANK = self._prev
+        return False
+
+
+def batch_stats(xf: torch.Tensor, axes: tuple):
+    """(mean, biased variance) of ``xf`` over ``axes`` and, under
+    ``set_cross_rank``, over the ranks: two passes, each an all-reduced
+    sum."""
+    if _CROSS_RANK is None:
+        mean = xf.mean(dim=axes)
+        return mean, torch.square(xf - mean).mean(dim=axes)
+    sum_fn, world = _CROSS_RANK
+    n = world * (xf.numel() // xf.shape[-1])
+    mean = sum_fn(xf.sum(dim=axes)) / n
+    return mean, sum_fn(torch.square(xf - mean).sum(dim=axes)) / n
 
 
 @torch.no_grad()
@@ -81,9 +124,7 @@ class BatchNorm(nn.Module):
         if self.use_running:
             mean, var = self.running_mean, self.running_var
         else:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.square(xf - mean).mean(dim=axes)
+            mean, var = batch_stats(xf, tuple(range(x.dim() - 1)))
             if _STATS_COLLECTOR is not None:
                 _STATS_COLLECTOR.append((self, mean.detach(), var.detach()))
         y = (xf - mean) * torch.rsqrt(var + EPS)

@@ -7,28 +7,49 @@ from __future__ import annotations
 import argparse
 import os
 
+from ..parallel.train_parallel import is_main, torchrun_env
+
 ROADMAP = "(ROADMAP.md, queue 1)"
 
 
 def add_gpu_ids(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gpu_ids", default="0",
                    help="device ids as the JAX CLI takes them: -1 for the CPU, else the "
-                        "first id names the card (cuda:<id>); one card only")
+                        "first id names the card (cuda:<id>); several ids only under "
+                        "torchrun, one per local rank")
     p.add_argument("--device", default=None,
-                   help="cuda, cuda:<i> or cpu; when given it overrides --gpu_ids")
+                   help="cuda, cuda:<i> or cpu; when given it overrides --gpu_ids (under "
+                        "torchrun, cuda means cuda:<LOCAL_RANK>)")
 
 
 def device_of(opt) -> str:
     """The device the options ask for: ``--device`` when given, else
     ``--gpu_ids`` parsed as the JAX CLI parses it (the non-negative ids; none
-    means the CPU).  More than one id is refused: multi-GPU is not ported."""
+    means the CPU).  Under torchrun each process drives one card: local rank
+    r takes ``cuda:<ids[r]>`` where ``--gpu_ids`` lists one id per local
+    rank, else ``cuda:<r>`` (``--device cuda`` too).  Outside torchrun more
+    than one id is refused: one process drives one card."""
     ids = [int(s) for s in str(opt.gpu_ids).split(",") if int(s) >= 0]
-    if len(ids) > 1:
-        raise NotImplementedError(f"--gpu_ids {opt.gpu_ids}: more than one card is not "
-                                  f"ported yet {ROADMAP}")
+    env = torchrun_env()
+    if env is None and len(ids) > 1:
+        raise NotImplementedError(
+            f"--gpu_ids {opt.gpu_ids}: one process drives one card; run one process per "
+            f"card under torchrun (python -m torch.distributed.run --nproc_per_node "
+            f"{len(ids)} -m neuroclear_tpu_torch.train_onecube ...) (ROADMAP.md, queue 3)")
     if opt.device is not None:
+        if env is not None and opt.device == "cuda":
+            return f"cuda:{env['local_rank']}"
         return opt.device
-    return f"cuda:{ids[0]}" if ids else "cpu"
+    if not ids:
+        return "cpu"
+    if env is None:
+        return f"cuda:{ids[0]}"
+    if len(ids) == env["local_world"]:
+        return f"cuda:{ids[env['local_rank']]}"
+    if len(ids) == 1:
+        return f"cuda:{env['local_rank']}"
+    raise ValueError(f"--gpu_ids {opt.gpu_ids}: under torchrun give one id per local rank "
+                     f"({env['local_world']}), or none")
 
 
 def refuse_other_values(opt, ported: dict) -> None:
@@ -42,7 +63,10 @@ def refuse_other_values(opt, ported: dict) -> None:
 
 def print_options(opt, parser: argparse.ArgumentParser, path: str) -> None:
     """Print the options, marking those off their defaults, and write them
-    to ``path``, as ``BaseOptions.print_options`` does."""
+    to ``path``, as ``BaseOptions.print_options`` does (rank 0 alone under
+    data parallelism)."""
+    if not is_main():
+        return
     lines = ["----------------- Options ---------------"]
     for k, v in sorted(vars(opt).items()):
         default = parser.get_default(k)

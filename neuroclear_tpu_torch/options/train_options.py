@@ -23,11 +23,13 @@ from __future__ import annotations
 import argparse
 import datetime
 import os
+import time
 
 from .. import models
 from ..data.singlevolume_dataset import check_preprocess
 from ..models.axial_to_lateral_gan_apollo_model import GAN_NET_D, GAN_NET_G
 from ..nn.norms import NORMS
+from ..parallel import train_parallel
 from ..utils.weights import INIT_TYPES
 from . import ROADMAP, add_gpu_ids, device_of, refuse_other_values
 from . import print_options as _print_options
@@ -65,7 +67,9 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--preprocess",
                    default="random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel")
     p.add_argument("--crop_size", type=int, nargs=3, default=[108, 108, 108])
-    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="train: the loader's batch, split over the ranks under torchrun; "
+                        "train_onecube: counts iterations (one crop per rank a step), as in JAX")
     p.add_argument("--serial_batches", action="store_true",
                    help="the epoch trainer takes the items in order (else shuffled)")
     p.add_argument("--max_dataset_size", type=int, default=float("inf"),
@@ -168,8 +172,6 @@ def check_options(opt, dataset_modes=("singlevolume",), check_preprocess=check_p
     sampler by default)."""
     refused = [
         (opt.dataset_mode not in dataset_modes, f"--dataset_mode {opt.dataset_mode}"),
-        (opt.batch_size != 1, f"--batch_size {opt.batch_size} (--grad_accum takes its crops "
-                              "one at a time, with --batch_size 1, as in JAX)"),
         (opt.fused_accum, "--fused_accum (item 1)"),
         (getattr(opt, "netG_B", "deep_linear_gen") not in GAN_NET_G,
          f"--netG_B {getattr(opt, 'netG_B', None)}"),
@@ -179,23 +181,35 @@ def check_options(opt, dataset_modes=("singlevolume",), check_preprocess=check_p
             raise NotImplementedError(f"{what} {NOT_PORTED}")
     refuse_other_values(opt, PORTED_VALUES)
     device_of(opt)
-    if opt.grad_accum < 1:
-        raise ValueError(f"--grad_accum {opt.grad_accum}: at least 1")
+    if opt.grad_accum < 1 or opt.batch_size < 1:
+        raise ValueError(f"--grad_accum {opt.grad_accum}, --batch_size {opt.batch_size}: at "
+                         "least 1 each")
     check_preprocess(opt.preprocess)
 
 
 def parse(argv=None, dataset_modes=("singlevolume",), check_preprocess=check_preprocess):
-    """Parse and check; with ``--add_date`` (and not ``--continue_train``)
+    """Parse and check; under torchrun bring up the process group
+    (``train_parallel.maybe_initialize_distributed``, NCCL between cards,
+    gloo on the CPU).  With ``--add_date`` (and not ``--continue_train``)
     the name gets its date prefix, as ``BaseOptions.parse`` gives it.
     Without ``--seed`` a seed is drawn from ``os.urandom`` (as
-    ``BaseModel.__init__`` of the JAX package draws it) and printed."""
+    ``BaseModel.__init__`` of the JAX package draws it) and printed.  Under
+    data parallelism rank 0 draws the seed and the date and every rank
+    takes them; ``--grad_accum`` > 1 is refused there, as in JAX (the ranks
+    are the batch)."""
     opt = build_parser(argv).parse_args(argv)
     check_options(opt, dataset_modes, check_preprocess)
+    train_parallel.maybe_initialize_distributed(device_of(opt))
+    if train_parallel.world() > 1 and opt.grad_accum > 1:
+        raise SystemExit(f"--grad_accum {opt.grad_accum} needs a single process; over "
+                         f"{train_parallel.world()} ranks the ranks are the batch")
     if opt.seed is None:
-        opt.seed = int.from_bytes(os.urandom(4), "little")
-        print(f"--seed not given: drew seed {opt.seed}", flush=True)
+        opt.seed = train_parallel.broadcast_int(int.from_bytes(os.urandom(4), "little"))
+        if train_parallel.is_main():
+            print(f"--seed not given: drew seed {opt.seed}", flush=True)
     if opt.add_date and not opt.continue_train:
-        opt.name = datetime.datetime.now().strftime("%Y%m%d-%H%M") + "_" + opt.name
+        stamp = train_parallel.broadcast_int(int(time.time()))
+        opt.name = datetime.datetime.fromtimestamp(stamp).strftime("%Y%m%d-%H%M") + "_" + opt.name
     return opt
 
 

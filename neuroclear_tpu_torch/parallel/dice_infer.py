@@ -18,14 +18,34 @@ the same tiles in the same order, so the port gives both entry points the
 one pipeline and the one answer.  Departures from the JAX package, neither
 of which changes the result: the last tile batch of a slab may be short
 (eager PyTorch needs no padded batches), and the emitted rows keep their
-(rows, Y, X) shape.  The sharded multi-device paths wait for the multi-GPU
-slice (ROADMAP.md, queue 1 item 9).
+(rows, Y, X) shape.
+
+``n_devices`` = W > 1 is JAX's sharded streaming pipeline
+(``_make_sharded_slab_step``) under an initialized process group of world W
+(one process per card, ``parallel/train_parallel.py``): each rank runs its
+share of a slab's tiles into a zero f32 (roi, Y, X) delta, one
+``all_reduce`` SUM per slab merges the ranks' deltas, and every rank adds
+the delta to its accumulator, emits the slab's rows and rolls the tail as
+one card does, so every rank returns the volume.  The sum is the one card's
+but for the f32 order in which the deltas join (within 1 uint16 LSB).
+JAX's non-streaming ``_scan_sharded`` has no counterpart: ``run`` is
+``run_streaming`` here too.  One departure from JAX, which deals the tiles
+one by one (rank d takes tiles d, d + W, ...): the port deals one card's
+tile batches (rank d takes batches d, d + W, ... of ``tile_batch`` tiles in
+dicing order), so every tile runs in the batch, and at the place in it, that
+it has on one card.  A tile's bf16 output on the card depends on both (its
+batch's size, ROADMAP queue 3, and its place: the norm's statistics kernel
+splits a batch's rows into blocks from the batch's first row); dealt one by
+one, the shipped 9 tiles a slab at tile batch 2 over 2 ranks moved the
+volume by up to 512 LSB from one card's.  Rank 0 then takes batches [0, 1],
+[4, 5], [8] of each slab and rank 1 [2, 3], [6, 7].
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import resolve_device
@@ -113,15 +133,19 @@ class DiceInferencePipeline:
     def __init__(self, net, grid: DiceGrid, inv_scale: float, tile_batch: int = 4,
                  repetition: bool = False, n_devices: int = 1, precision: str = "float32",
                  out_dtype=None, orig_shape=None, device=None):
-        if n_devices != 1:
-            raise NotImplementedError(f"n_devices {n_devices}: the sharded pipeline is not "
-                                      "ported yet (ROADMAP.md, queue 1 item 9)")
+        if n_devices != 1 and not (dist.is_initialized()
+                                   and dist.get_world_size() == n_devices):
+            world = dist.get_world_size() if dist.is_initialized() else None
+            raise RuntimeError(f"n_devices {n_devices} runs one rank per card: it needs an "
+                               f"initialized process group of world {n_devices} (torchrun), "
+                               f"not {'none' if world is None else f'world {world}'}")
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision {precision!r}: float32 or bfloat16")
         out_dtype = np.dtype(out_dtype).name if out_dtype is not None else None
         if out_dtype not in _OUT_DTYPES:
             raise ValueError(f"out_dtype {out_dtype!r}: one of {_OUT_DTYPES}")
         self.net = net
+        self.n_devices = int(n_devices)
         self.grid = grid
         self.inv_scale = float(inv_scale)
         self.tile_batch = int(tile_batch)
@@ -142,6 +166,11 @@ class DiceInferencePipeline:
         y = y[..., 0].float()
         b = self.grid.border_cut
         return y[:, b:-b, b:-b, b:-b] if b > 0 else y
+
+    @staticmethod
+    def _merge(delta: torch.Tensor) -> None:
+        """The ranks' slab deltas summed, in place on every rank."""
+        dist.all_reduce(delta)
 
     def run(self, vol_padded: np.ndarray) -> np.ndarray:
         """The JAX package's non-streaming entry point: the same volume as
@@ -200,14 +229,22 @@ class DiceInferencePipeline:
         copier = _HostCopier(dev)
         takes = []
         B = self.tile_batch
+        nd = self.n_devices
+        batches = [offs_yx[j:j + B] for j in range(0, len(offs_yx), B)]
+        mine = batches[dist.get_rank()::nd] if nd > 1 else batches
         for i in range(g.z_steps):
             slab = slab_volume(i)
-            for j in range(0, len(offs_yx), B):
-                batch = offs_yx[j:j + B]
+            # one card adds its tiles into the accumulator; a rank into a
+            # zero delta that the slab's one all-reduce merges
+            dest = acc if nd == 1 else torch.zeros_like(acc)
+            for batch in mine:
                 tiles = torch.stack([slab[:ext, y:y + ext, x:x + ext] for y, x in batch])
                 y = self._generate((tiles * self.inv_scale).to(self.compute_dtype)[..., None])
                 for k, (y0, x0) in enumerate(batch):
-                    acc[:, y0:y0 + roi, x0:x0 + roi] += y[k]
+                    dest[:, y0:y0 + roi, x0:x0 + roi] += y[k]
+            if nd > 1:
+                self._merge(dest)
+                acc += dest
             take = roi if i == g.z_steps - 1 else step
             row_inv = inv_cz[i * step:i * step + roi]
             copier.submit(_emit_rows(acc, row_inv, inv_cy, inv_cx, self.out_dtype,

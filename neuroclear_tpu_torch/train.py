@@ -18,9 +18,17 @@ rate, with ``--display_freq``, ``--print_freq`` (the loss read-back, the
 loop's one device sync) and ``--save_latest_freq`` counted in items; at the
 end of every ``--save_epoch_freq``-th epoch it writes ``latest`` and
 ``{epoch}`` checkpoints, and each epoch ends with the schedule's step.
-``--grad_accum`` > 1 is refused, as in JAX (it is ``train_onecube``'s), and
-so is more than one card.  It runs on the card unless ``--device cpu`` (or
-``--gpu_ids -1``).
+``--grad_accum`` > 1 is refused, as in JAX (it is ``train_onecube``'s).
+It runs on the card unless ``--device cpu`` (or ``--gpu_ids -1``).  A step
+takes the loader's whole batch (``--batch_size N``: the losses are means
+over it).  Under torchrun (``python -m torch.distributed.run
+--nproc_per_node W -m neuroclear_tpu_torch.train ...``) the batch is
+split over the W ranks, as JAX's ``train.py`` shards it over its mesh:
+every rank runs the loader with the one seed, so it cuts the whole batch
+with the single process's order and draws, and keeps its rows; the
+gradients and losses are averaged over the ranks.  A batch that W does not
+divide is refused (JAX would run every process unsharded).  Rank 0 alone
+prints and writes.
 """
 
 from __future__ import annotations
@@ -30,12 +38,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import resolve_device
 from .data import create_dataset
 from .data.base_dataset import check_host_preprocess
 from .models import create_model
 from .options import device_of, train_options
+from .parallel import train_parallel
+from .parallel.train_parallel import DataParallel, rank_zero_stdout
 from .train_onecube import _mark, _seconds
 from .utils.visualizer import Visualizer
 
@@ -62,7 +73,8 @@ def parse(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Train.  Returns {"losses": one {name: float} per step, "step_seconds":
+    """Train (data-parallel under a process group).  Returns {"losses": one
+    {name: float} per step, "step_seconds":
     seconds of each step on the device's clock, from its batch's arrival to
     the step's last operation, "item_seconds": the host chain's seconds per
     batch, "wait_seconds": how long each step waited for its batch,
@@ -72,6 +84,14 @@ def main(argv=None) -> dict:
     if opt.grad_accum > 1:
         raise SystemExit("--grad_accum is a train_onecube feature; the epoch trainer "
                          "batches through its loader")
+    if opt.batch_size % train_parallel.world():
+        raise SystemExit(f"--batch_size {opt.batch_size} does not split over "
+                         f"{train_parallel.world()} ranks; give a multiple of the world")
+    with rank_zero_stdout():
+        return _train(opt)
+
+
+def _train(opt) -> dict:
     device = resolve_device(device_of(opt))
     # f32 convs in full f32, as the JAX package's HIGHEST precision
     torch.backends.cudnn.allow_tf32 = False
@@ -85,6 +105,11 @@ def main(argv=None) -> dict:
     model = create_model(opt, device)
     model.init_weights(opt.seed, opt.init_type, opt.init_gain)
     model.setup(opt)
+    dp = DataParallel(model) if dist.is_initialized() else None
+    if dp is not None:
+        print(f"data parallel over {dp.n} ranks ({dist.get_backend()}): "
+              f"{opt.batch_size // dp.n} of each batch's {opt.batch_size} items per rank",
+              flush=True)
     visualizer = Visualizer(opt)
     visualizer.display_model_hyperparameters()
     names = model.loss_names
@@ -103,7 +128,8 @@ def main(argv=None) -> dict:
                     t_data = iter_start_time - iter_data_time
                 total_iters += opt.batch_size
                 epoch_iter += opt.batch_size
-                real = torch.from_numpy(to_ndhwc(data["A"])).to(device)
+                real = torch.from_numpy(to_ndhwc(data["A"]))
+                real = (dp.shard(real) if dp is not None else real).to(device)
                 draws = model.draw_probes(tuple(real.shape[1:4]), gen)
                 start = _mark(device)
                 step_losses, *_ = model.optimize_parameters(real, draws)

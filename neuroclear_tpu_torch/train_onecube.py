@@ -43,10 +43,26 @@ trainer's).  ``--profile_dir`` writes a ``torch.profiler`` trace of the
 loop.  It runs on the card unless ``--device cpu`` (or ``--gpu_ids -1``) is
 given.  ``--fused_accum`` and the models of the zoo beyond these three are
 not ported yet (ROADMAP.md).
+
+On several cards, one process per card:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m neuroclear_tpu_torch.train_onecube <the same command>
+
+runs JAX's data-parallel recipe (``parallel/train_parallel.py``): NCCL
+between the cards, every rank drawing the geometry of all N crops and the
+step's probe draws from the one seed (rank 0's, broadcast when ``--seed``
+is not given) and cutting its own crop, the gradients and losses averaged
+over the ranks before the one Adam update, batch norm's statistics taken
+over all N crops.  It is the ``--grad_accum N`` step computed on N cards
+(which ``--grad_accum`` > 1 is then refused beside, as in JAX).  Rank 0
+alone prints and writes; every rank keeps its ``--watchdog_secs``.
+``--batch_size`` counts iterations, as in JAX.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import sys
@@ -54,11 +70,14 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
+from . import ops as kernel_ops
 from . import resolve_device
 from .data.singlevolume_dataset import SingleVolumeDataset, volume_path
 from .models import create_model
 from .options import device_of, train_options
+from .parallel.train_parallel import DataParallel, is_main, rank_zero_stdout
 from .utils import tiffio
 from .utils.visualizer import Visualizer
 
@@ -156,13 +175,27 @@ def main(argv=None) -> dict:
     """Train.  The losses are read back (a device sync) only every
     ``--print_freq`` iterations and at the end, so the host queues a step
     while the card runs the one before.  With ``--max_iters`` N, returns
-    {"losses": one {name: float} per iteration, "step_seconds": seconds of
-    each iteration on the device's clock (from the end of one to the end of
-    the next), "checkpoints": paths written, "visuals": the snapshot paths,
-    "device", "model": the model after the last iteration, "total_iters"};
-    without it the run keeps no history and does not return."""
+    {"losses": one {name: float} per step, "step_seconds": seconds of each
+    step on the device's clock (from the end of one to the end of the
+    next), "checkpoints": paths written, "visuals": the snapshot paths,
+    "device", "model": the model after the last step, "total_iters"}, and
+    prints each kernel's launches in the run and the step seconds; without
+    it the run keeps no history and does not return.  Under a process group (torchrun) the
+    model runs data-parallel: one crop per rank a step, the gradients and
+    losses averaged over the ranks; rank 0 alone prints and writes."""
     opt = train_options.parse(argv)
+    with rank_zero_stdout():
+        return _train(opt)
+
+
+def _train(opt) -> dict:
     device, dataset, model = setup(opt)
+    sample = dataset.sample
+    if dist.is_initialized():
+        dp = DataParallel(model)
+        sample = dp.batch_sampler(dataset)
+        print(f"data parallel over {dp.n} ranks ({dist.get_backend()}), one crop per rank "
+              "a step", flush=True)
     visualizer = Visualizer(opt)
     gen = torch.Generator().manual_seed(opt.seed)
     loaded_iter = opt.load_iter + 1 if opt.load_iter > 0 else 0
@@ -172,10 +205,10 @@ def main(argv=None) -> dict:
 
     # with --max_iters, each step's losses and end mark, kept without a sync
     names = model.loss_names
-    log = torch.empty((opt.max_iters, len(names)), device=device)
-    marks = [_mark(device)]
+    steps, marks = [], [_mark(device)]
     paths, snapshots, t_data = [], [], 0.0
-    prof = _profiler(opt, device)
+    prof = _profiler(opt, device) if is_main() else None
+    launched = kernel_ops.launches()
     iter_data_time = time.time()
     while True:
         # the crops' draws first, then the step's probe draws, as the JAX
@@ -183,7 +216,7 @@ def main(argv=None) -> dict:
         if opt.grad_accum > 1:
             geometry = [dataset.draws(gen) for _ in range(opt.grad_accum)]
         else:
-            real = dataset.sample(gen)
+            real = sample(gen)
         draws = model.draw_probes(opt.crop_size, gen)
         iter_start_time = time.time()
         if (total_iters - loaded_iter) % opt.print_freq == 0:
@@ -196,7 +229,7 @@ def main(argv=None) -> dict:
             step_losses, *_ = model.optimize_parameters(real, draws)
         values = torch.stack([step_losses[n] for n in names])
         if opt.max_iters:
-            log[total_iters - loaded_iter - 1] = values
+            steps.append(values)
             marks.append(_mark(device))
 
         if total_iters % opt.display_freq == 0:
@@ -244,8 +277,11 @@ def main(argv=None) -> dict:
     if watchdog:
         watchdog.stop()
     visualizer.close()
-    losses = [dict(zip(names, row)) for row in log.tolist()]
+    losses = [dict(zip(names, row.tolist())) for row in steps]
     secs = [_seconds(a, b) for a, b in zip(marks, marks[1:])]
+    launches = {k: v - launched[k] for k, v in kernel_ops.launches().items()}
+    print(f"kernel launches: {json.dumps(launches)}", flush=True)
+    print(f"step seconds (device clock): {json.dumps(secs)}", flush=True)
     return {"losses": losses, "step_seconds": secs, "checkpoints": paths,
             "visuals": snapshots, "device": device, "model": model,
             "total_iters": total_iters}

@@ -12,6 +12,8 @@ MIP figures, histograms and the options where ``torch.utils.tensorboard``
 A sink that does not import is reported as off once; it is never a stand-in
 for anything else, and nothing here catches an error of the training step.
 The visuals are device tensors, read back only when a sink takes them.
+Under data parallelism rank 0 alone writes (the other ranks' visualizer
+does nothing).
 
 ``save_images`` fills an HTML gallery of the tiled inference (PNG
 thumbnails through ``utils/png.py``) and ``save_test_metrics`` writes the
@@ -26,6 +28,7 @@ import time
 
 import numpy as np
 
+from ..parallel.train_parallel import is_main
 from . import html, tiffio
 from .imageops import save_image, tensor2im
 
@@ -44,15 +47,18 @@ class Visualizer:
     def __init__(self, opt):
         self.opt = opt
         self.name = opt.name
+        self.active = is_main()
         self.display_histogram = opt.display_histogram
-        self.use_html = not opt.no_html
+        self.use_html = not opt.no_html and self.active
         self.web_dir = os.path.join(opt.checkpoints_dir, opt.name, "web")
         self.img_dir = os.path.join(self.web_dir, "images")
+        self.tb_writer = self.plt = None
+        if not self.active:
+            return
         if self.use_html:
             print(f"create web directory {self.web_dir}...")
             os.makedirs(self.img_dir, exist_ok=True)
 
-        self.tb_writer = self.plt = None
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError as e:
@@ -164,6 +170,8 @@ class Visualizer:
             self.tb_writer.add_scalar(tag + label, loss, plot_count)
 
     def print_current_losses(self, epoch, epoch_progress, losses, t_comp, t_data):
+        if not self.active:
+            return
         message = ("(epoch: %d, epoch_progress: %d%%, iter time: %.3f, "
                    "data load time: %.3f) " % (epoch, epoch_progress, t_comp, t_data))
         for k, v in losses.items():

@@ -73,6 +73,8 @@ def test_run_with_unet_deconv_matches_jax_and_run_streaming(repetition):
 
 
 def test_run_refuses_more_than_one_device():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Two devices are two ranks: without a process group of world 2 the
+    pipeline refuses them (tests/test_torch_dp_dice.py runs them)."""
+    with pytest.raises(RuntimeError, match="process group of world 2"):
         DiceInferencePipeline(_TorchG(np.zeros((3, 3, 3, 1, 1), np.float32)),
                               DiceGrid((28,) * 3, 16, 4, 4), 1.0, n_devices=2, device="cpu")

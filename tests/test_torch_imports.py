@@ -55,7 +55,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "train", "data.warp", "data.cube_dataset", "data.simulationcrop_dataset",
                  "models.axial_to_lateral_gan_athena_model",
                  "models.axial_to_lateral_gan_dryops_model", "utils.image_pool", "nn.norms",
-                 "nn.factory", "nn.generators", "nn.discriminators"):
+                 "nn.factory", "nn.generators", "nn.discriminators",
+                 "parallel.train_parallel", "parallel.dice_infer"):
         assert f"neuroclear_tpu_torch.{name}" in proc.stdout.split(), name
 
 

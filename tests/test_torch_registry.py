@@ -84,7 +84,7 @@ def test_study_athena_command_parses_through_the_registry():
 
 
 @pytest.mark.parametrize("extra", [["--netG", "unet_twoouts"], ["--netG_B", "resnet_9blocks"],
-                                   ["--model", "cycle_gan"], ["--batch_size", "2"]])
+                                   ["--model", "cycle_gan"], ["--fused_accum"]])
 def test_what_is_not_ported_is_refused_for_athena(extra):
     argv = ["--dataroot", "x", "--model", "axial_to_lateral_gan_athena", "--device", "cpu",
             *extra]

@@ -131,7 +131,7 @@ def test_crop_draws_cover_the_inclusive_range():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--fused_accum"], ["--grad_accum", "2", "--batch_size", "2"],
+    ["--fused_accum"], ["--grad_accum", "2", "--dataset_mode", "cube"],
     ["--netG", "VGG"], ["--netG_B", "unet_twoouts"],
     ["--preprocess",
      "random3Drotate_random90rotate_randomcrop_randomflip_addColorChannel_addBatchChannel"]])
