@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (neuroclear_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--quality700]
 
 Phases, each printed with its name, seconds and result:
   1. environment: torch/CUDA versions and the card (exits nonzero without one);
@@ -87,7 +87,24 @@ Phases, each printed with its name, seconds and result:
      one's peak device memory (remat's lower); one accum-2 step three ways
      judged as the train phase's, printed beside its random-weight errors,
      and its accumulation against the mean of the per-crop gradients;
-  11. athena: the JAX study's Athena command (``--model
+  11. quality study: the JAX study's s4 run (``scripts/run_quality_study.sh``)
+     through the port's driver (``run_quality_study --inprocess``): the
+     300^3 ``--preset s4 --seed 0`` volumes generated on the host with the
+     port's CLI, their sha256 required equal to the CPU's
+     (``SYNTH_S4_300``); NAME apollo148s4 seeded from a bank of the study's
+     iteration 11000, two segments of two iterations (148^3, bf16,
+     ``--remat``) and evals at 11002, 11006 and the final one with the
+     study's eval flags (the fused ``test_dice`` path), each with its
+     diagnosis; every eval's two protocol blocks, the diagnosis rows, the
+     selection (the argmax, also on the logs with their iterations
+     permuted) and the launches of the whole study exact (four steps'
+     ``REMAT_STEP_LAUNCHES`` and each eval's 32 tile batches); the step
+     times and eval seconds; then one accum-2 step of the study command three
+     ways (host windows, ``NEUROCLEAR_ACCUM_DEVICE_VOL=1``,
+     ``--fused_accum``): the fused form bitwise the device volume's, the
+     host-window crops within JAX's border bound of the device volume's,
+     each run's peak memory and a host-window crop's seconds;
+  12. athena: the JAX study's Athena command (``--model
      axial_to_lateral_gan_athena --conversion_plane yz xy``, 128^3 crops,
      ``--remat``, bf16) through ``train_onecube.main`` on a synthetic 256^3
      TIFF from the eight nets the study trained (``study_state/athena148``)
@@ -96,20 +113,20 @@ Phases, each printed with its name, seconds and result:
      and without remat, bitwise equal, with each peak; the 15 losses against
      the JAX step's formulas restated here; one step three ways judged with
      ``ATHENA_DIRECT``;
-  12. dryops: ``--model axial_to_lateral_gan_dryops`` at 108^3 from random
+  13. dryops: ``--model axial_to_lateral_gan_dryops`` at 108^3 from random
      Kaiming weights: four steps, launches exact, the step median, the
      three-way step, and two crops' accumulation under one set of draws;
-  13. epoch: the epoch trainer (``neuroclear_tpu_torch.train.main``) with the
+  14. epoch: the epoch trainer (``neuroclear_tpu_torch.train.main``) with the
      cube dataset over three synthetic 160^3 TIFFs, the production flags in
      bf16, one epoch with the host chain on a prefetching thread: launches
      exact, the host chain's seconds per item beside the step times, the
      epoch's checkpoints, the device's idle share over the epoch loop (the
      epoch again under torch.profiler, its ``epoch_loop`` range), and the
      host chain's rotation against scipy float64;
-  14. trained G_A: the slice's tile pipeline on the JAX study's trained
+  15. trained G_A: the slice's tile pipeline on the JAX study's trained
      Apollo G_A, its launches, its bf16 output against the plain versions
      in f32 and in bf16 within ``TRAINED_KP_*``;
-  15. vanilla: Apollo's production command in bf16 with ``--netG
+  16. vanilla: Apollo's production command in bf16 with ``--netG
      unet_vanilla`` at 112^3 (it pools three times) through
      ``train_onecube.main`` on a synthetic 176^3 TIFF, random Kaiming
      weights: four steps, launches exact (``VANILLA_STEP_LAUNCHES``), the
@@ -117,19 +134,19 @@ Phases, each printed with its name, seconds and result:
      three-way step judged with ``VANILLA_DIRECT``; test_dice from its
      checkpoint on the slice's volume with 144^3 tiles against the plain
      versions in bf16 and f32 (``VANILLA_KP_*``);
-  16. batchnorm: the production flags with ``--norm batch`` at 108^3, bf16,
+  17. batchnorm: the production flags with ``--norm batch`` at 108^3, bf16,
      four steps, only the W-pair conv launched (``BATCHNORM_STEP_LAUNCHES``);
      the kernel and plain models in lockstep, after each step the refresh
      against its restated formula and the running statistics against the
      plain model's; test_dice ``--norm batch`` from the checkpoint with and
      without ``--eval``, each against its plain path;
-  17. zoo nets: every other ``define_G`` / ``define_D`` name at its factory
+  18. zoo nets: every other ``define_G`` / ``define_D`` name at its factory
      width (3D generators at 64^3, the ResNets at 256^2, VGG16 at 2 x 224^2,
      the discriminators at 128 slices of 128^2), forward and backward in
      bf16 and f32, kernels against plain, with the hand kernels each
      launched; the spectral norm and ResNet's transposed conv against
      restatements;
-  18. dp: data parallelism on the one card.  The train phase's command for
+  19. dp: data parallelism on the one card.  The train phase's command for
      four steps through ``python -m torch.distributed.run --standalone
      --nproc_per_node 1 -m neuroclear_tpu_torch.train_onecube`` (NCCL at a
      world of one): the process group up and the model wrapped, its
@@ -152,11 +169,15 @@ Phases, each printed with its name, seconds and result:
      LSB, both ranks' volumes equal; the gloo step medians (two processes
      sharing one card, not a multi-card speed) and the bytes all-reduced
      per step;
-  19. profile (only with --profile): a warm run of the slice's tile pipeline
+  20. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv), three warm cubes of the per-cube
      loop (with its copies), a warm training step, a warm study step and a
      warm Athena step under torch.profiler, device time by kernel and the
      device's idle share, and warm steps with and without a sync after each.
+``python3 chip_smoke.py --quality700`` runs instead, after the build, the
+JAX study's eval of its iteration 11000 in the port (the 700^3 s4 volumes
+regenerated, ``test_dice`` in bf16 and f32; the input row held to
+docs/QUALITY.md's 21.49 / 0.459, the output rows printed beside its).
 Then a ``{"kernels": [...]}`` line (the forward norm's two rows also carry
 the 108^3 step's sums as ``step_*`` and one f32 cube's as ``legacy_*``), the nvidia-smi name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -172,6 +193,7 @@ import faulthandler
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -187,6 +209,7 @@ from neuroclear_tpu_torch.data import find_dataset_using_name, warp
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
 from neuroclear_tpu_torch.models import create_model
+from neuroclear_tpu_torch.models.base_model import atomic_savez
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
     D_NAMES, G_NAMES, LOSS_NAMES, MODEL_NAMES, ApolloModel)
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_athena_model import (
@@ -198,12 +221,15 @@ from neuroclear_tpu_torch.nn import norms
 from neuroclear_tpu_torch.nn.factory import define_D, define_G
 from neuroclear_tpu_torch.nn.losses import gan_loss, l1_loss
 from neuroclear_tpu_torch.nn.generators import UNetDeconv
+from neuroclear_tpu_torch.nn.schedulers import LRController
 from neuroclear_tpu_torch.ops import build, conv3x3, inorm, rotation, wconv
-from neuroclear_tpu_torch.ops.augment import crop_draws
+from neuroclear_tpu_torch.ops.augment import crop_draws, window_plan
 from neuroclear_tpu_torch.options import test_options, train_options
 from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
-from neuroclear_tpu_torch.utils import png, tiffio
+from neuroclear_tpu_torch.scripts import (generate_synthetic, run_quality_study,
+                                          select_checkpoint)
+from neuroclear_tpu_torch.utils import png, synthetic, tiffio
 from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import init_flat, load_npz, params_from_numpy
 
@@ -429,6 +455,27 @@ ACCUM_REL_L2 = 1e-6
 # than the plain path, 0.086 against 0.093 pooled), at two to three times
 # those, below the faults' 0.5 and more (chip_smoke_faults.py runs them here)
 STUDY_DIRECT = {"G_A": 0.15, "G_B": 0.1, "D": 0.15}
+
+# The quality study (scripts/run_quality_study.sh, the JAX study's s4 run)
+# through the port's driver: the 300^3 --preset s4 --seed 0 volumes, whose
+# sha256 (``synthetic.digest`` of the trio, computed on the CPU and equal to
+# the JAX generator's, tests/test_torch_study.py) the card's host must give
+# too; NAME apollo148s4 seeded from a bank of study_state/apollo148s4's
+# iteration 11000: its six nets and its optimizer state where the checkout
+# holds it (.chiprunignore keeps the 150 MB file out of the chip's copy,
+# which holds 256 MiB and the Athena nets; there the port writes a fresh
+# Adam's state, step 0 and zero moments, in its place), two segments of two
+# iterations with
+# SAVE_FREQ 2 (the JAX trainer resumes from N at N + 1, so they end at 11003
+# and 11006, and the evals that exist are 11002 and 11006), and the final
+# eval.  Cut: the volume (300^3, not 700^3), the segments and the ladder.
+SYNTH_S4_300 = "63d5480a437de845031374769dbb10d20f215c5f537d8ecff244fc3a3b15936d"
+QUALITY_NAME, QUALITY_SIZE, QUALITY_EVALS = "apollo148s4", 300, (11002, 11006)
+QUALITY_CROP_DRAWS = 64  # host-window crops held against the device volume's
+QUALITY_KNOBS = {"NAME": QUALITY_NAME, "MAX_ITERS": "11006",
+                 "EVALS": " ".join(map(str, QUALITY_EVALS)), "SEG_ITERS": "2",
+                 "SAVE_FREQ": "2", "PRINT_FREQ": "1", "WATCHDOG": "900", "SEG_TIMEOUT": "900",
+                 "GEN_FLAGS": f"--preset s4 --size {QUALITY_SIZE}"}
 
 # Athena: the JAX study's Athena command (scripts/run_study_queue.sh:74-80,
 # MODEL_FLAGS "--model axial_to_lateral_gan_athena --conversion_plane yz xy"
@@ -1914,6 +1961,358 @@ def run_study(seed: int, dev, tmp: str, random_pooled: dict) -> dict:
             "pooled": pooled, "accum_err": acc_err}
 
 
+def dice_batches(shape, roi: int = 120, overlap: int = 15, border: int = 10,
+                 tile_batch: int = 2) -> int:
+    """Tile batches of the fused pipeline over a volume of ``shape``: each
+    z slab's tiles in batches of ``tile_batch``."""
+    grid = DiceGrid(pad_for_dicing(np.zeros(shape, np.uint8), roi, overlap).shape, roi,
+                    overlap, border)
+    return grid.z_steps * -(-(grid.y_steps * grid.x_steps) // tile_batch)
+
+
+def eval_launches(shape, **dice) -> dict:
+    """One study eval's launches (the fused tile pipeline in bf16)."""
+    return pipeline_launches(dice_batches(shape, **dice))
+
+
+def generate_quality_volumes(data: str, size: int) -> tuple:
+    """The study's volumes through the port's CLI, as the driver generates
+    them (``--size 700 --seed 0`` then ``GEN_FLAGS``); (seconds, the trio's
+    digest, the input volume)."""
+    t0 = time.perf_counter()
+    generate_synthetic.main(["--out", data, "--size", "700", "--seed", "0", "--preset", "s4",
+                             "--size", str(size)])
+    secs = time.perf_counter() - t0
+    trio = [tiffio.imread(os.path.join(data, sub, name))
+            for sub, name in generate_synthetic.FILES]
+    return secs, synthetic.digest(trio), trio[0]
+
+
+def quality_logs(logd: str) -> dict:
+    """The driver's logs: the segments, the evals in order, each eval's
+    metrics, inference seconds and both protocol blocks, each diagnosis'
+    rows, the selection, and the trainer's step seconds."""
+    text = open(os.path.join(logd, "driver.log")).read()
+    out = {"segments": re.findall(r"=== segment (\d+) from iter (\d+)", text),
+           "evals": [int(m) for m in re.findall(r"--- (?:final )?eval at (\d+)", text)],
+           "metrics": {}, "eval_s": {}, "diag": {}, "blocks": {}}
+    for it in sorted(set(out["evals"])):
+        path = os.path.join(logd, f"eval_{it}.log")
+        ev = open(path).read()
+        out["metrics"][it] = select_checkpoint.parse_eval_log(path)
+        out["blocks"][it] = (ev.count("Network Input vs. Groundtruth"),
+                             ev.count("Network Output vs. Groundtruth"), ev.count("(ssim: "))
+        out["eval_s"][it] = float(re.search(r"Inference\+assembly: ([0-9.]+)s", ev).group(1))
+        diag = open(os.path.join(logd, f"diag_{it}.log")).read().splitlines()
+        out["diag"][it] = [ln for ln in diag if ln.split(":")[0].strip() in
+                           ("gt", "input", "output")]
+    out["selected"] = open(os.path.join(logd, "selected.txt")).read()
+    train = open(os.path.join(logd, "train.log")).read()
+    out["step_s"] = [s for ln in re.findall(r"step seconds \(device clock\): (\[.*\])", train)
+                     for s in json.loads(ln)]
+    return out
+
+
+def check_quality_logs(q: dict, launches: dict, vol_shape) -> dict:
+    """The study's run: two segments from the bank, every eval with both
+    protocol blocks and its diagnosis, the selection the argmax, and the
+    launches exactly four steps' and three evals'."""
+    bad = []
+    if q["segments"] != [("1", str(STUDY_LOAD_ITER)), ("2", str(STUDY_LOAD_ITER + 3))]:
+        bad.append(f"segments {q['segments']}")
+    if q["evals"] != [*QUALITY_EVALS, QUALITY_EVALS[-1]]:
+        bad.append(f"evals {q['evals']}")
+    for it, blocks in q["blocks"].items():
+        m = q["metrics"][it]
+        if blocks != (1, 1, 2) or m is None or not all(
+                math.isfinite(m[k]) for k in ("input_psnr", "output_psnr", "output_ssim")):
+            bad.append(f"eval {it}: blocks {blocks}, metrics {m}")
+        if len(q["diag"][it]) != 3:
+            bad.append(f"diagnosis {it}: rows {q['diag'][it]}")
+    n_steps, n_evals = 4, len(q["evals"])
+    per_eval = eval_launches(vol_shape)
+    expected = {k: n_steps * REMAT_STEP_LAUNCHES[k] + n_evals * per_eval[k]
+                for k in kernel_ops.KERNELS}
+    if launches != expected:
+        bad.append(f"launches {launches} != {expected}")
+    if len(q["step_s"]) != n_steps:
+        bad.append(f"step seconds {q['step_s']}")
+    if bad:
+        raise AssertionError(f"the quality study: {bad}")
+    return {"per_eval": per_eval, "expected": expected}
+
+
+def argmax_iteration(rows) -> int:
+    """The iteration of the best output PSNR, the earlier on a tie (the
+    selection rule, restated)."""
+    best = max(m["output_psnr"] for _, m in rows)
+    return min(it for it, m in rows if m["output_psnr"] == best)
+
+
+def check_selection(logd: str, tmp: str) -> int:
+    """The study's ``selected.txt`` names the argmax of its eval logs; and
+    ``select_checkpoint --write`` on a copy of those logs with their
+    iterations reassigned so that the best PSNR is the earliest (the newest
+    is then not the argmax) names that one.  Returns the study's argmax."""
+    rows = select_checkpoint.scan(logd)
+    best = argmax_iteration(rows)
+    selected = open(os.path.join(logd, "selected.txt")).read()
+    bad = [] if selected.startswith(f"selected: iter {best} ") else [
+        f"selected {selected!r}, argmax {best}"]
+    texts = {it: open(os.path.join(logd, f"eval_{it}.log")).read() for it, _ in rows}
+    ranked = sorted(rows, key=lambda r: -r[1]["output_psnr"])
+    perm = os.path.join(tmp, "permuted_logs")
+    os.makedirs(perm)
+    for it, (src, _) in zip(sorted(texts), ranked):
+        with open(os.path.join(perm, f"eval_{it}.log"), "w") as f:
+            f.write(texts[src])
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        select_checkpoint.main([perm, "--write"])
+    want = argmax_iteration(select_checkpoint.scan(perm))
+    got = open(os.path.join(perm, "selected.txt")).read()
+    if not got.startswith(f"selected: iter {want} "):
+        bad.append(f"on the permuted logs selected {got!r}, argmax {want}")
+    if bad:
+        raise AssertionError(f"the selection: {bad}")
+    return best
+
+
+def check_quality_volumes(data: str) -> tuple:
+    """The study's volumes generated on the card's host, their digest
+    required the CPU's (``SYNTH_S4_300``); (seconds, digest, input volume)."""
+    gen_s, digest, vol = generate_quality_volumes(data, QUALITY_SIZE)
+    log(f"  generated {QUALITY_SIZE}^3 --preset s4 --seed 0 in {gen_s:.1f} s on the host: "
+        f"sha256 {digest} ({'equal to' if digest == SYNTH_S4_300 else 'DIFFERENT from'} the "
+        "CPU's)")
+    if digest != SYNTH_S4_300:
+        raise AssertionError(f"the generated trio's digest {digest} != {SYNTH_S4_300}")
+    return gen_s, digest, vol
+
+
+def quality_bank(tmp: str) -> str:
+    """A bank of the study's iteration 11000 (``QUALITY_KNOBS``' comment):
+    links to its files, and a fresh Adam's optimizer file where the
+    checkout lacks the study's."""
+    bank = os.path.join(tmp, "bank")
+    os.makedirs(bank)
+    for f in os.listdir(STUDY_STATE):
+        os.symlink(os.path.join(STUDY_STATE, f), os.path.join(bank, f))
+    optim = os.path.join(bank, f"iter_{STUDY_LOAD_ITER}_optim.npz")
+    if not os.path.exists(optim):
+        opt = train_options.build_parser().parse_args(["--dataroot", "unused", *STUDY_ARGS])
+        model = ApolloModel(opt, "cpu")
+        model.lr_controllers = [LRController(opt.lr_policy, opt) for _ in range(2)]
+        atomic_savez(optim, model.optim_arrays())
+        log(f"  {optim} written: a fresh Adam (the study's is not in this checkout)")
+    return bank
+
+
+def quality_accum_three_ways(data: str, bank: str, tmp: str, dev, seed: int) -> dict:
+    """One accum-2 step of the study command from the bank three ways:
+    crops from host windows (JAX's default), from the device volume
+    (``NEUROCLEAR_ACCUM_DEVICE_VOL=1``), and cut first and resident together
+    (``--fused_accum``), each run's peak device memory; the fused run
+    bitwise the device-volume run, the host windows' crops within JAX's
+    border bound of the device volume's (bit for bit expected); and the
+    host-window crop's seconds."""
+    ckpt = os.path.join(tmp, "accum_ckpt")
+    os.makedirs(os.path.join(ckpt, QUALITY_NAME))
+    for f in os.listdir(bank):
+        os.symlink(os.path.realpath(os.path.join(bank, f)), os.path.join(ckpt, QUALITY_NAME, f))
+    k = run_quality_study.knobs({**QUALITY_KNOBS, "BANK": bank})
+    argv = [*run_quality_study.train_flags(k, data, ckpt), "--continue_train", "--load_iter",
+            str(STUDY_LOAD_ITER), "--max_iters", "1", "--grad_accum", "2", "--no_html",
+            "--save_latest_freq", "1000000"]
+    runs = {}
+    for label, extra, env in (("host windows", [], None),
+                              ("device volume", [], "1"),
+                              ("fused", ["--fused_accum"], None)):
+        with _env("NEUROCLEAR_ACCUM_DEVICE_VOL", env):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            kernel_ops.reset_launches()
+            res = train_onecube.main([*argv, *extra])
+            torch.cuda.synchronize()
+            runs[label] = {"res": res, "launches": kernel_ops.launches(),
+                           "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30,
+                           "step_ms": 1e3 * res["step_seconds"][0]}
+    expected = {kk: 2 * v for kk, v in REMAT_STEP_LAUNCHES.items()}
+    bad = [f"{label} launches {r['launches']}" for label, r in runs.items()
+           if r["launches"] != expected]
+    forms = {label: r["res"]["form"] for label, r in runs.items()}
+    if forms != {"host windows": "host windows, per crop",
+                 "device volume": "device volume, per crop",
+                 "fused": "device volume, resident batch"}:
+        bad.append(f"forms {forms}")
+    if runs["host windows"]["res"]["dataset"].uploaded:
+        bad.append("the host-window run uploaded the volume")
+    fused, per_crop = runs["fused"]["res"], runs["device volume"]["res"]
+    diffs = _model_state_diffs(fused["model"], per_crop["model"])
+    if diffs or fused["losses"] != per_crop["losses"]:
+        bad.append(f"fused against the device volume: {diffs[:4]} losses {fused['losses']} "
+                   f"{per_crop['losses']}")
+    hw_same = (not _model_state_diffs(runs["host windows"]["res"]["model"], per_crop["model"])
+               and runs["host windows"]["res"]["losses"] == per_crop["losses"])
+
+    # the crops themselves, the step's and more, host window against device volume
+    ds = per_crop["dataset"]
+    gen = torch.Generator().manual_seed(seed + 11)
+    draws = [ds.draws(gen) for _ in range(QUALITY_CROP_DRAWS)]
+    worst_share, worst_median, unequal = 0.0, 0.0, 0
+    for d in draws:
+        a, b = ds.window_crop(*d), ds.crop(*d)
+        diff = (a - b).abs()
+        worst_share = max(worst_share, float((diff > 1e-4).float().mean()))
+        worst_median = max(worst_median, float(diff.median()))
+        unequal += not torch.equal(a, b)
+    if not (worst_share < 0.005 and worst_median < 2e-5):
+        bad.append(f"host-window crops off the device volume's: share {worst_share}, "
+                   f"median {worst_median}")
+    # host seconds per crop: the window's plan, slice and upload, then the
+    # gather, each crop to the end of its gather
+    times = []
+    for d in draws[:8]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds.window_crop(*d)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    host_s = []
+    for d in draws[:8]:
+        t0 = time.perf_counter()
+        host_window(ds, d)
+        host_s.append(time.perf_counter() - t0)
+    log("  accum-2 study step three ways: " + "; ".join(
+        f"{label} ({r['res']['form']}) {r['step_ms']:.1f} ms, peak {r['peak_gib']:.3f} GiB "
+        "above the memory held before it"
+        for label, r in runs.items()))
+    log(f"  fused against the device volume: "
+        f"{'bitwise equal' if not diffs else 'DIFFERENT'}; host windows against the device "
+        f"volume: step {'bitwise equal' if hw_same else 'different'}; {len(draws)} crops, "
+        f"{unequal} not bitwise, worst share off by > 1e-4 {worst_share:.3g}, worst median "
+        f"{worst_median:.3g}; a host-window crop {1e3 * float(np.median(times)):.2f} ms to "
+        f"the end of its gather, of which the window's plan and host slice "
+        f"{1e3 * float(np.median(host_s)):.2f} ms (medians of 8, 148^3 crops, window "
+        f"{window_plan(ds.shape, draws[0][0], draws[0][1], ds.crop_size)})")
+    if bad:
+        raise AssertionError(f"the accum-2 study step three ways: {bad}")
+    out = {label: {kk: r[kk] for kk in ("peak_gib", "step_ms")} for label, r in runs.items()}
+    del runs, fused, per_crop
+    torch.cuda.empty_cache()
+    return {"runs": out, "crop_ms": 1e3 * float(np.median(times)),
+            "host_ms": 1e3 * float(np.median(host_s)), "unequal": unequal,
+            "hw_step_equal": hw_same}
+
+
+def host_window(ds, draw) -> np.ndarray:
+    """The host part of a host-window crop: its plan and the window sliced
+    into the upload dtype."""
+    plan = window_plan(ds.shape, draw[0], draw[1], ds.crop_size)
+    return np.ascontiguousarray(ds.host_vol[tuple(slice(*r) for r in plan)], np.int32)
+
+
+@contextlib.contextmanager
+def _env(name: str, value):
+    """``name`` set to ``value`` (unset for None) inside the block."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+        if old is not None:
+            os.environ[name] = old
+
+
+def run_quality(seed: int, dev, tmp: str) -> dict:
+    """The quality study on the card: the 300^3 s4 volumes (digest against
+    the CPU's), the port's driver (``run_quality_study --inprocess``) from
+    the bank, its logs checked (``check_quality_logs``) with the launches of
+    the whole study; then ``quality_accum_three_ways``."""
+    data = os.path.join(tmp, "data")
+    gen_s, digest, vol = check_quality_volumes(data)
+    logd = os.path.join(tmp, "log")
+    bank = quality_bank(tmp)
+    environ = {**QUALITY_KNOBS, "RESULTS": os.path.join(tmp, "results"), "BANK": bank}
+    kernel_ops.reset_launches()
+    t0 = time.perf_counter()
+    rc = run_quality_study.main([data, os.path.join(tmp, "ckpt"), logd, "--inprocess"],
+                                environ=environ)
+    secs = time.perf_counter() - t0
+    launches = kernel_ops.launches()
+    if rc != 0:
+        tail = open(os.path.join(logd, "driver.log")).read()[-2000:]
+        raise AssertionError(f"the study driver exited {rc}: {tail}")
+    q = quality_logs(logd)
+    chk = check_quality_logs(q, launches, vol.shape)
+    chk["best"] = check_selection(logd, tmp)
+    step_ms = [1e3 * s for s in q["step_s"]]
+    log(f"  driver {secs:.1f} s: segments {q['segments']}, evals {q['evals']}; launches "
+        f"{launches} (per step {REMAT_STEP_LAUNCHES}, per eval {chk['per_eval']}, "
+        f"{dice_batches(vol.shape)} tile batches)")
+    log("  step ms (148^3, bf16, --remat, from the bank): "
+        + ", ".join(f"{t:.1f}" for t in step_ms) + "; eval s (inference and assembly): "
+        + ", ".join(f"{it} {s:.3f}" for it, s in q["eval_s"].items()))
+    for it, m in q["metrics"].items():
+        log(f"  eval {it}: input psnr {m['input_psnr']:.4f}, output psnr "
+            f"{m['output_psnr']:.4f} ssim {m['output_ssim']:.4f}; diagnosis: "
+            + " | ".join(q["diag"][it]))
+    log(f"  {q['selected'].strip()}")
+    three = quality_accum_three_ways(data, bank, tmp, dev, seed)
+    return {"launches": launches, "digest": digest, "gen_s": gen_s, "driver_s": secs,
+            "step_ms": step_ms, "eval_s": q["eval_s"], "metrics": q["metrics"],
+            "best": chk["best"], "per_eval": chk["per_eval"], **three}
+
+
+# docs/QUALITY.md's round-4 eval of iteration 11000 of the s4 study (the
+# 700^3 --preset s4 --seed 0 volume, the full protocol): (PSNR, SSIM) of the
+# input and of the output against the ground truth, to the table's digits
+QUALITY_700 = {"input": (21.49, 0.459), "output": (19.86, 0.446)}
+
+
+def run_quality700(tmp: str) -> dict:
+    """``--quality700``: the JAX study's eval of its iteration 11000 redone
+    in the port: the 700^3 s4 volumes regenerated, ``test_dice`` with the
+    study's eval flags on ``study_state/apollo148s4`` in bf16 and in f32;
+    the input row (which no net touches) must print docs/QUALITY.md's to its
+    digits; the output rows are printed beside its."""
+    data = os.path.join(tmp, "sim700")
+    gen_s, digest, vol = generate_quality_volumes(data, size=700)
+    log(f"  generated 700^3 --preset s4 --seed 0 in {gen_s:.1f} s on the host: sha256 {digest}")
+    rows, bad = {}, []
+    for precision in ("bfloat16", "float32"):
+        k = run_quality_study.knobs({"NAME": QUALITY_NAME, "RESULTS": os.path.join(tmp, precision),
+                                     "EVAL_FLAGS": f"--precision {precision}"})
+        argv = run_quality_study.eval_flags(k, data, os.path.dirname(STUDY_STATE),
+                                            STUDY_LOAD_ITER)
+        kernel_ops.reset_launches()
+        t0 = time.perf_counter()
+        res = test_dice.main(argv)
+        secs = time.perf_counter() - t0
+        launches = kernel_ops.launches()
+        m = res["metrics"]
+        rows[precision] = {**m, "seconds": secs, "inference_s": res["seconds"],
+                           "launches": launches}
+        ref_in, ref_out = QUALITY_700["input"], QUALITY_700["output"]
+        log(f"  {precision}: input psnr {m['psnr_input']:.4f} ssim {m['ssim_input']:.4f} "
+            f"(docs/QUALITY.md {ref_in[0]} / {ref_in[1]}); output psnr {m['psnr_output']:.4f} "
+            f"ssim {m['ssim_output']:.4f} (docs/QUALITY.md {ref_out[0]} / {ref_out[1]}: "
+            f"{m['psnr_output'] - ref_out[0]:+.4f} dB, {m['ssim_output'] - ref_out[1]:+.4f}); "
+            f"{secs:.1f} s in all, inference and assembly {res['seconds']:.3f} s; launches "
+            f"{launches}")
+        if (round(m["psnr_input"], 2), round(m["ssim_input"], 3)) != ref_in:
+            bad.append(f"{precision} input row {m['psnr_input']:.4f} / {m['ssim_input']:.4f}")
+        if precision == "bfloat16" and launches != eval_launches(vol.shape):
+            bad.append(f"launches {launches} != {eval_launches(vol.shape)}")
+        del res
+    if bad:
+        raise AssertionError(f"the 700^3 eval: {bad}")
+    return rows
+
+
 def athena_model(flats: dict, dev, plain: bool = False, **overrides):
     """The study's Athena model (its flags, ``overrides`` applied) holding
     ``flats`` ({NAME: JAX flat dict}), with a fresh Adam."""
@@ -3383,6 +3782,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-tasks", default=",".join(DP_TASKS), help="the dp rank's tasks")
     ap.add_argument("--dp-fault", default=None,
                     help="module:function installing a fault in the dp rank")
+    ap.add_argument("--quality700", action="store_true",
+                    help="instead of the smoke: the JAX study's 700^3 eval of its iteration "
+                         "11000 redone in the port (bf16 and f32)")
     args = ap.parse_args(argv)
     if args.dp_rank:
         return dp_rank_main(args)
@@ -3412,6 +3814,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"no HGMMA (wgmma) instruction in the SASS of {missing}")
         ph.result = (f"nvcc sm_90a {secs}; HGMMA instructions in SASS {hgmma}; "
                      + " | ".join(regs))
+
+    if args.quality700:
+        with Phase("quality 700") as ph, tempfile.TemporaryDirectory() as tmp:
+            rows = run_quality700(tmp)
+            ph.result = json.dumps(rows, default=str)
+        log(smi)
+        return 0
 
     with Phase("kernels") as ph:
         conv = check_conv(gen, dev, wconv, CONV_SHAPES)
@@ -3465,6 +3874,17 @@ def main(argv=None) -> int:
                      f"(median of {STUDY_ITERS - 1}); peak {st['peak_gib']:.3f} GiB with remat, "
                      f"{st['peak_gib_no_remat']:.3f} without, bitwise equal; trained-weight "
                      f"gradient error against f32 (kernels / plain bf16) {st['pooled']}")
+
+    with Phase("quality study") as ph, tempfile.TemporaryDirectory() as tmp:
+        qs = run_quality(args.seed, dev, tmp)
+        ph.result = (f"{QUALITY_SIZE}^3 s4 volumes bitwise the CPU's; the driver "
+                     f"{qs['driver_s']:.1f} s, 4 steps of the s4 study command "
+                     f"({', '.join(f'{t:.1f}' for t in qs['step_ms'])} ms), "
+                     f"{len(qs['eval_s'])} evals, launches exact, iteration {qs['best']} "
+                     f"selected; accum-2 step: fused bitwise the device volume's, host-window "
+                     f"crops {QUALITY_CROP_DRAWS - qs['unequal']} of {QUALITY_CROP_DRAWS} "
+                     f"bitwise, peaks " + ", ".join(f"{k} {v['peak_gib']:.3f} GiB"
+                                                   for k, v in qs["runs"].items()))
 
     with Phase("athena") as ph, tempfile.TemporaryDirectory() as tmp:
         at = run_athena(args.seed, dev, tmp)
@@ -3560,7 +3980,8 @@ def main(argv=None) -> int:
                    "legacy": lg["launches"][name], "legacy_tta": lg["tta_launches"][name],
                    "run": lg["run_launches"][name], "train": tr["launches"][name],
                    "train_f32": tr["f32_launches"][name], "resume": rs["launches"][name],
-                   "study": st["launches"][name], "athena": at["launches"][name],
+                   "study": st["launches"][name], "quality": qs["launches"][name],
+                   "athena": at["launches"][name],
                    "dryops": dr["launches"][name], "epoch": ep["launches"][name],
                    "trained_dice": tg["launches"][name], "vanilla": vn["launches"][name],
                    "vanilla_dice": vn["dice_launches"][name],

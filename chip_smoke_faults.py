@@ -48,8 +48,14 @@ fault installed in each): one rank skipping the gradient all-reduce (the
 ranks' state must diverge), the run generator seeded with seed + rank (the
 step is no longer the ``--grad_accum 2`` step), batch norm on per-rank
 statistics (no longer the batched step), one rank's slab delta dropped (the
-sharded pipeline leaves its one-LSB bound).  It exits nonzero unless the
-runs as they are pass their checks and every fault fails one.
+sharded pipeline leaves its one-LSB bound).  Last, the quality-study
+phase's checks (``quality_failures``): the generated volumes' digest with
+the generator's axial sigma applied along x; the checkpoint selection
+(``check_selection``) with a selection of the newest eval instead of the
+argmax; the accum-2 study step three ways (``quality_accum_three_ways``)
+with a host window sliced one voxel off in y and with a fused form that
+cuts its crops from other draws than the step's.  It exits nonzero unless
+the runs as they are pass their checks and every fault fails one.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ import chip_smoke as cs
 from neuroclear_tpu_torch import test_dice
 from neuroclear_tpu_torch.data import warp
 from neuroclear_tpu_torch.data.dicing import DiceCube
+from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
 from neuroclear_tpu_torch.models import axial_to_lateral_gan_athena_model as athena
 from neuroclear_tpu_torch.models import gan_common
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import ApolloModel
@@ -81,6 +88,8 @@ from neuroclear_tpu_torch.nn.factory import define_D, define_G
 from neuroclear_tpu_torch.utils.weights import init_flat, params_from_numpy
 from neuroclear_tpu_torch.nn import generators
 from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
+from neuroclear_tpu_torch.scripts import select_checkpoint
+from neuroclear_tpu_torch.utils import synthetic
 from neuroclear_tpu_torch.utils.assemble import Assemble_Dice
 
 
@@ -676,6 +685,116 @@ def run(label, seed, vol, dev) -> int:
     return len(bad)
 
 
+def _window_shifted_in_y(f):
+    """A host window sliced one voxel off in y from the place its plan
+    gives the gather."""
+    def fn(self, angle, offsets, flips):
+        plan = augment.window_plan(self.shape, angle, offsets, self.crop_size)
+        (z0, z1), (y0, y1), (x0, x1) = plan
+        dy = 1 if y1 < self.shape[1] else -1
+        window = self._upload(self.host_vol[z0:z1, y0 + dy:y1 + dy, x0:x1])
+        out = augment.sample_window_crop(window, plan, self.shape, angle, offsets,
+                                         self.crop_size, self.inv_scale, flips)
+        return out[None, ..., None]
+    return fn
+
+
+def _newest_selected(f):
+    """A selection that takes the newest eval instead of the argmax."""
+    return lambda rows: rows[-1] if rows else None
+
+
+def _axial_sigma_along_x(f):
+    """The generator's blur with its sigmas reversed: the axial sigma
+    applied along x."""
+    return lambda vol, sigmas: f(vol, tuple(sigmas)[::-1])
+
+
+def _fused_from_other_keys(f):
+    """A resident batch cut from draws of another generator than the
+    step's."""
+    def fn(self, generator, n):
+        return f(self, torch.Generator().manual_seed(int(generator.initial_seed()) + 1), n)
+    return fn
+
+
+def _quality_logs(logd: str) -> None:
+    """Two eval logs as the port's ``test_dice`` prints them, the earlier
+    the better, and the driver's selection on them."""
+    os.makedirs(logd)
+    for it, (p_in, p_out, s_out) in ((11002, (21.49, 20.75, 0.33)),
+                                     (11006, (21.49, 19.86, 0.25))):
+        with open(os.path.join(logd, f"eval_{it}.log"), "w") as f:
+            f.write("Network Input vs. Groundtruth\n(psnr: %.4f) \n(ssim: 0.4590) \n"
+                    "---------------------------------------------------------\n"
+                    "Network Output vs. Groundtruth\n(psnr: %.4f) \n(ssim: %.4f) \n"
+                    % (p_in, p_out, s_out))
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        select_checkpoint.main([logd, "--write"])
+
+
+def quality_failures(seed, dev) -> bool:
+    """The quality-study phase's checks as they are (each must pass) and
+    with each fault (each must fail): the volumes' digest
+    (``check_quality_volumes``) with the axial sigma along x; the selection
+    (``check_selection``) with a selection of the newest eval; the accum-2
+    study step three ways (``quality_accum_three_ways``) with a host window
+    shifted by one voxel in y and with a fused form that cuts its crops from
+    other draws.  Returns whether all did as they must."""
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        cs.check_quality_volumes(data)
+        n = [0]
+
+        def fresh():
+            n[0] += 1
+            return os.path.join(tmp, f"run{n[0]}")
+
+        def volumes():
+            cs.check_quality_volumes(fresh())
+
+        def selection():
+            d = fresh()
+            _quality_logs(os.path.join(d, "log"))
+            cs.check_selection(os.path.join(d, "log"), d)
+
+        bank = cs.quality_bank(tmp)
+
+        def three_ways():
+            d = fresh()
+            os.makedirs(d)
+            cs.quality_accum_three_ways(data, bank, d, dev, seed)
+
+        checks = [
+            ("quality volumes", volumes,
+             [("the axial sigma applied along x",
+               _swapped(synthetic, "_gaussian_blur_separable", _axial_sigma_along_x))]),
+            ("selection", selection,
+             [("the newest eval selected", _swapped(select_checkpoint, "select",
+                                                    _newest_selected))]),
+            ("accum-2 three ways", three_ways,
+             [("a host window shifted by one voxel in y",
+               _swapped(SingleVolumeDataset, "window_crop", _window_shifted_in_y)),
+              ("the fused crops cut from other draws",
+               _swapped(SingleVolumeDataset, "sample_batch", _fused_from_other_keys))]),
+        ]
+        for name, check, faults in checks:
+            for i, (label, fault) in enumerate([(f"{name} as it is",
+                                                 contextlib.nullcontext())] + faults):
+                try:
+                    with fault:
+                        check()
+                except AssertionError as e:
+                    cs.log(f"== {label}: the {name} check fails: {str(e)[:300]}")
+                    ok &= i > 0
+                else:
+                    cs.log(f"== {label}: the {name} check passes")
+                    ok &= i == 0
+                torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -703,6 +822,7 @@ def main(argv=None) -> int:
     ok &= new_model_failures(args.seed, dev)
     ok &= zoo_failures(args.seed, dev)
     ok &= dp_failures(args.seed)
+    ok &= quality_failures(args.seed, dev)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

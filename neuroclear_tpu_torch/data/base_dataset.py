@@ -53,6 +53,19 @@ def check_host_preprocess(preprocess: str) -> None:
                                   f"{sorted(HOST_TOKENS)}")
 
 
+def to_ndhwc(a: np.ndarray) -> np.ndarray:
+    """A loader batch as (N, Z, Y, X, 1), as the JAX models' ``_to_ndhwc``
+    reads it: (B, 1, z, y, x, 1) from the host chain with addBatchChannel,
+    (z, y, x, 1), (B, z, y, x) or (z, y, x)."""
+    if a.ndim == 6:
+        a = a.reshape((-1,) + a.shape[2:])
+    if a.ndim == 4:
+        a = a[None] if a.shape[-1] == 1 else a[..., None]
+    if a.ndim == 3:
+        a = a[None, ..., None]
+    return np.ascontiguousarray(a, np.float32)
+
+
 def get_params(opt, vol_shape, rng: np.random.Generator) -> dict:
     """Pre-drawn transform parameters (``get_params`` of the JAX package):
     the crop position, one flip axis and the rotation angle."""

@@ -72,7 +72,7 @@ class AthenaModel(BaseModel):
     """The eight nets, their f32 parameters and the two Adams, on ``device``."""
 
     G_NAMES, D_NAMES, LOSS_NAMES = G_NAMES, D_NAMES, LOSS_NAMES
-    REFRESH_ALL_CROPS = True
+    TAKES_BATCH = True
     modify_commandline_options = staticmethod(modify_commandline_options)
 
     def __init__(self, opt, device=None, plain: bool = False):

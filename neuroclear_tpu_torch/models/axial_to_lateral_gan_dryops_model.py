@@ -56,7 +56,7 @@ class DryopsModel(BaseModel):
     G_NAMES, D_NAMES, LOSS_NAMES = G_NAMES, D_NAMES, LOSS_NAMES
     VISUAL_NAMES = ["real", "fake"]
     G_PROBES, D_PROBES = G_PROBES, D_PROBES
-    REFRESH_ALL_CROPS = True
+    TAKES_BATCH = True
     modify_commandline_options = staticmethod(modify_commandline_options)
 
     def __init__(self, opt, device=None, plain: bool = False):

@@ -165,10 +165,12 @@ class BaseModel:
     VISUAL_NAMES: list = ["real", "fake", "rec"]
     G_PROBES: list = []
     D_PROBES: list = []
-    # the input of the batch-norm refresh after a --grad_accum step: the
-    # last crop (Apollo, whose JAX step takes its crops from a sampler), or
-    # the batch of all N crops (Athena and Dryops, which JAX hands the batch)
-    REFRESH_ALL_CROPS = False
+    # how the JAX model takes a --grad_accum step's crops: one at a time from
+    # a sampler (Apollo without --fused_accum: train_onecube hands it per-crop
+    # samplers, and the batch-norm refresh runs on the last crop), or as the
+    # resident batch of all N (Athena and Dryops: ``optimize_parameters_batch``,
+    # the refresh on all N)
+    TAKES_BATCH = False
 
     def __init__(self, opt, device=None):
         self.device = resolve_device(device)
@@ -185,6 +187,9 @@ class BaseModel:
         self.lr_controllers = []
         self.visuals = {}
         self.reduce_gradients = None
+        self.supports_input_sampler = (not self.TAKES_BATCH
+                                       and getattr(opt, "grad_accum", 1) > 1
+                                       and not getattr(opt, "fused_accum", False))
 
     @property
     def model_names(self) -> list:
@@ -394,16 +399,28 @@ class BaseModel:
         self.refresh_norm_stats(real)
         return (losses, *outs)
 
-    def optimize_parameters_accum(self, crop, n: int, draws):
+    def optimize_parameters_accum(self, crop, n: int, draws, batch=None):
         """One ``--grad_accum n`` training step (``accumulate``, then one
         Adam update on the mean gradients): (losses, *outs); the last crop's
         real and outputs are kept as the visuals.  Then the batch-norm
-        refresh on the last crop, or on all n (``REFRESH_ALL_CROPS``)."""
+        refresh on the last crop, or on all n (``TAKES_BATCH``, or
+        ``batch``: the n crops resident together)."""
         losses, real, *outs, g_grads, d_grads = self.accumulate(crop, n, draws)
         losses, g_grads, d_grads = self._reduce(losses, g_grads, d_grads)
         self.apply_gradients(g_grads, d_grads)
         self.visuals = dict(zip(self.VISUAL_NAMES, (real, *outs)))
         if self.norm == "batch":
-            self.refresh_norm_stats(torch.cat([crop(i) for i in range(n)])
-                                    if self.REFRESH_ALL_CROPS else real)
+            if batch is None and self.TAKES_BATCH:
+                batch = torch.cat([crop(i) for i in range(n)])
+            self.refresh_norm_stats(real if batch is None else batch)
         return (losses, *outs)
+
+    def optimize_parameters_batch(self, batch: torch.Tensor, draws):
+        """The ``--grad_accum`` step on the (N, cz, cy, cx, 1) batch of crops
+        cut first and resident together, JAX's one-program form (Apollo's
+        ``--fused_accum``, Athena's and Dryops' only form): the micro-steps of
+        ``optimize_parameters_accum`` on its rows in order, the same update,
+        so bit for bit the per-crop form on the same crops; the batch-norm
+        refresh on the whole batch, as the JAX model refreshes on its input."""
+        return self.optimize_parameters_accum(lambda i: batch[i:i + 1], batch.shape[0], draws,
+                                              batch=batch)

@@ -1,6 +1,8 @@
 """Command-line options of the port's entry points, and what their two
 parsers share: the JAX CLI's ``--gpu_ids`` beside the port's ``--device``,
-and the options dump of ``BaseOptions.print_options``."""
+the flags the JAX CLI declares and never reads, ``--suffix``,
+``--direction`` and ``--debug``, and the options dump of
+``BaseOptions.print_options``."""
 
 from __future__ import annotations
 
@@ -20,6 +22,54 @@ def add_gpu_ids(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="cuda, cuda:<i> or cpu; when given it overrides --gpu_ids (under "
                         "torchrun, cuda means cuda:<LOCAL_RANK>)")
+
+
+# flags the JAX parsers declare and no JAX code path reads: taken, with their
+# JAX defaults, so that a JAX command line parses, and change nothing
+UNREAD = {"--load_size": dict(type=int, default=286),
+          "--no_pin_memory": dict(action="store_true"),
+          "--display_winsize": dict(type=int, default=256),
+          "--server": dict(default="not-specified")}
+UNREAD_TRAIN = {"--momentum": dict(type=float, default=0.9),
+                "--display_ncols": dict(type=int, default=4),
+                "--display_server": dict(default="http://localhost"),
+                "--display_env": dict(default="main"),
+                "--display_port": dict(type=int, default=8097),
+                "--dice_size": dict(type=int, nargs="+", default=[0, 0, 0])}
+UNREAD_TEST = {"--ntest": dict(type=int, default=float("inf")),
+               "--background_threshold": dict(type=float, nargs="+", default=[None, None]),
+               "--reference_slice_range": dict(type=int, nargs="+", default=[None, None]),
+               "--compare_with_gt": dict(action="store_true")}
+
+
+def add_jax_flags(p: argparse.ArgumentParser, unread: dict) -> None:
+    """``--suffix``, ``--direction``, ``--debug`` and the ``unread`` flags."""
+    for flag, kw in {**UNREAD, **unread}.items():
+        p.add_argument(flag, **kw, help="no effect: the JAX CLI declares it and never reads it")
+    p.add_argument("--suffix", default="",
+                   help="template appended to the name as _<suffix>, formatted from the parsed "
+                        "options (e.g. '{netG}_{crop_size}')")
+    p.add_argument("--direction", default="AtoB",
+                   help="AtoB; the port's datasets hold no B volume")
+    p.add_argument("--debug", action="store_true",
+                   help="the JAX CLI's jax.profiler server: refused (use --profile_dir)")
+
+
+def apply_jax_flags(opt, refuse_btoa: bool) -> None:
+    """Refuse ``--debug`` (and ``--direction BtoA`` where ``refuse_btoa``:
+    the step reads the missing B volume) with a pointer to ROADMAP.md;
+    append the formatted ``--suffix`` to the name, as ``BaseOptions.parse``
+    does after the date stamp."""
+    if opt.debug:
+        raise NotImplementedError(f"--debug (a jax.profiler server) is not ported {ROADMAP}; "
+                                  "--profile_dir writes a torch.profiler trace")
+    if opt.direction not in ("AtoB", "BtoA"):
+        raise ValueError(f"--direction {opt.direction}: AtoB or BtoA")
+    if refuse_btoa and opt.direction == "BtoA":
+        raise NotImplementedError(f"--direction BtoA reads a B volume, which the port's "
+                                  f"datasets do not hold {ROADMAP}")
+    if opt.suffix:
+        opt.name = opt.name + "_" + opt.suffix.format(**vars(opt))
 
 
 def device_of(opt) -> str:

@@ -19,7 +19,8 @@ import os
 from ..models.axial_to_lateral_gan_apollo_model import GAN_NET_G
 from ..nn.norms import NORMS
 from ..utils.weights import INIT_TYPES
-from . import add_gpu_ids, device_of, refuse_other_values
+from . import (UNREAD_TEST, add_gpu_ids, add_jax_flags, apply_jax_flags, device_of,
+               refuse_other_values)
 from . import print_options as _print_options
 
 # value flags whose other values select paths the port does not have; the
@@ -120,6 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no effect: the loader always iterates in file order (test_dice.py "
                         "sets it); taken so that a JAX command line parses")
     add_gpu_ids(p)
+    add_jax_flags(p, UNREAD_TEST)
+    p.set_defaults(load_size=[0, 0, 0])  # JAX's test parser: its --crop_size default
     return p
 
 
@@ -132,8 +135,11 @@ def check_ported(opt) -> None:
 
 
 def parse(argv=None):
+    """Parse and check; ``--suffix`` extends the name, and ``--direction``
+    is read by no inference path, as in JAX."""
     opt = build_parser().parse_args(argv)
     check_ported(opt)
+    apply_jax_flags(opt, refuse_btoa=False)
     return opt
 
 

@@ -14,8 +14,8 @@ selects a path the port does not have (``--model``, ``--dataset_mode``,
 ``--crop_size``, ``--preprocess``): there they are the production
 configuration's.  A flag whose value selects a path that is not ported is
 refused by ``check_options`` with a pointer to ROADMAP.md; flags the JAX
-CLI keeps only for parity (``--num_threads``, ``--no_dropout``) are taken
-and change nothing.
+CLI keeps only for parity (``--num_threads``, ``--no_dropout``, and those it
+declares and never reads, ``options.UNREAD``) are taken and change nothing.
 """
 
 from __future__ import annotations
@@ -26,19 +26,20 @@ import os
 import time
 
 from .. import models
-from ..data.singlevolume_dataset import check_preprocess
+from ..data.base_dataset import check_host_preprocess
 from ..models.axial_to_lateral_gan_apollo_model import GAN_NET_D, GAN_NET_G
 from ..nn.norms import NORMS
 from ..parallel import train_parallel
 from ..utils.weights import INIT_TYPES
-from . import ROADMAP, add_gpu_ids, device_of, refuse_other_values
+from . import (ROADMAP, UNREAD_TRAIN, add_gpu_ids, add_jax_flags, apply_jax_flags, device_of,
+               refuse_other_values)
 from . import print_options as _print_options
 
 NOT_PORTED = f"is not ported yet {ROADMAP}"
 # value flags the production nets fix (one channel in and out, 64 filters),
 # and the nets and norms with which the JAX package's GAN models run
 PORTED_VALUES = {"input_nc": (1,), "output_nc": (1,), "ngf": (64,), "ndf": (64,),
-                 "netG": GAN_NET_G, "netD": GAN_NET_D, "norm": NORMS}
+                 "netG": GAN_NET_G, "netD": GAN_NET_D, "norm": NORMS, "image_dimension": (3,)}
 
 
 def build_parser(argv=None) -> argparse.ArgumentParser:
@@ -66,7 +67,13 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_mode", default="singlevolume")
     p.add_argument("--preprocess",
                    default="random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel")
-    p.add_argument("--crop_size", type=int, nargs=3, default=[108, 108, 108])
+    p.add_argument("--crop_size", type=int, nargs=3, default=[108, 108, 108],
+                   help="z y x; a 0 keeps the whole axis (train_onecube then runs the host "
+                        "chain)")
+    p.add_argument("--host_augment", action="store_true",
+                   help="train_onecube: cut each crop with the host chain instead of the "
+                        "device chain")
+    p.add_argument("--image_dimension", type=int, default=3, help="3: volumes")
     p.add_argument("--batch_size", type=int, default=1,
                    help="train: the loader's batch, split over the ranks under torchrun; "
                         "train_onecube: counts iterations (one crop per rank a step), as in JAX")
@@ -105,8 +112,8 @@ def base_parser() -> argparse.ArgumentParser:
                         "pre-update parameters, under one step's probe draws, then one Adam "
                         "update; each crop is cut just before its micro-step")
     p.add_argument("--fused_accum", action="store_true",
-                   help="--grad_accum as one program over the resident batch: not ported "
-                        "yet (ROADMAP.md, queue 1, item 1)")
+                   help="--grad_accum over the N crops cut first and resident together "
+                        "(JAX's one-program form; the same micro-steps and update)")
     # the optimizer and its schedule
     p.add_argument("--beta1", type=float, default=0.1)
     p.add_argument("--lr", type=float, default=0.0001)
@@ -153,6 +160,7 @@ def base_parser() -> argparse.ArgumentParser:
                    help="exit 42 if no iteration completes for this many seconds (armed "
                         "after the first); resume with --continue_train --load_iter")
     p.add_argument("--verbose", action="store_true", help="print the networks")
+    p.add_argument("--phase", default="train", help="names the options dump <phase>_opt.txt")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace (Chrome JSON) of the hot loop here")
     p.add_argument("--num_threads", type=int, default=8,
@@ -162,17 +170,17 @@ def base_parser() -> argparse.ArgumentParser:
                    help="seeds the weights, the crops and the probe draws (a fresh one from "
                         "os.urandom when omitted)")
     add_gpu_ids(p)
+    add_jax_flags(p, UNREAD_TRAIN)
     return p
 
 
-def check_options(opt, dataset_modes=("singlevolume",), check_preprocess=check_preprocess) -> None:
+def check_options(opt, dataset_modes=("singlevolume",)) -> None:
     """Raise NotImplementedError for every option whose path is not ported;
-    ``dataset_modes`` and ``check_preprocess``: the datasets and the
-    preprocess checker of the calling trainer (train_onecube's device
-    sampler by default)."""
+    ``dataset_modes``: the datasets of the calling trainer.  The preprocess
+    tokens are the host chain's, which hold the device chain's (a chain the
+    device path does not take runs on the host chain)."""
     refused = [
         (opt.dataset_mode not in dataset_modes, f"--dataset_mode {opt.dataset_mode}"),
-        (opt.fused_accum, "--fused_accum (item 1)"),
         (getattr(opt, "netG_B", "deep_linear_gen") not in GAN_NET_G,
          f"--netG_B {getattr(opt, 'netG_B', None)}"),
     ]
@@ -184,21 +192,22 @@ def check_options(opt, dataset_modes=("singlevolume",), check_preprocess=check_p
     if opt.grad_accum < 1 or opt.batch_size < 1:
         raise ValueError(f"--grad_accum {opt.grad_accum}, --batch_size {opt.batch_size}: at "
                          "least 1 each")
-    check_preprocess(opt.preprocess)
+    check_host_preprocess(opt.preprocess)
 
 
-def parse(argv=None, dataset_modes=("singlevolume",), check_preprocess=check_preprocess):
+def parse(argv=None, dataset_modes=("singlevolume",)):
     """Parse and check; under torchrun bring up the process group
     (``train_parallel.maybe_initialize_distributed``, NCCL between cards,
     gloo on the CPU).  With ``--add_date`` (and not ``--continue_train``)
-    the name gets its date prefix, as ``BaseOptions.parse`` gives it.
+    the name gets its date prefix, and then ``_<suffix>`` from ``--suffix``,
+    as ``BaseOptions.parse`` gives them (``options.apply_jax_flags``).
     Without ``--seed`` a seed is drawn from ``os.urandom`` (as
     ``BaseModel.__init__`` of the JAX package draws it) and printed.  Under
     data parallelism rank 0 draws the seed and the date and every rank
     takes them; ``--grad_accum`` > 1 is refused there, as in JAX (the ranks
     are the batch)."""
     opt = build_parser(argv).parse_args(argv)
-    check_options(opt, dataset_modes, check_preprocess)
+    check_options(opt, dataset_modes)
     train_parallel.maybe_initialize_distributed(device_of(opt))
     if train_parallel.world() > 1 and opt.grad_accum > 1:
         raise SystemExit(f"--grad_accum {opt.grad_accum} needs a single process; over "
@@ -210,11 +219,12 @@ def parse(argv=None, dataset_modes=("singlevolume",), check_preprocess=check_pre
     if opt.add_date and not opt.continue_train:
         stamp = train_parallel.broadcast_int(int(time.time()))
         opt.name = datetime.datetime.fromtimestamp(stamp).strftime("%Y%m%d-%H%M") + "_" + opt.name
+    apply_jax_flags(opt, refuse_btoa=True)
     return opt
 
 
 def print_options(opt) -> None:
     """Print the options and write them to
-    ``<checkpoints_dir>/<name>/train_opt.txt``."""
+    ``<checkpoints_dir>/<name>/<phase>_opt.txt``."""
     _print_options(opt, build_parser(["--model", opt.model]),
-                   os.path.join(opt.checkpoints_dir, opt.name, "train_opt.txt"))
+                   os.path.join(opt.checkpoints_dir, opt.name, f"{opt.phase}_opt.txt"))

@@ -42,7 +42,7 @@ import torch.distributed as dist
 
 from . import resolve_device
 from .data import create_dataset
-from .data.base_dataset import check_host_preprocess
+from .data.base_dataset import to_ndhwc
 from .models import create_model
 from .options import device_of, train_options
 from .parallel import train_parallel
@@ -53,23 +53,9 @@ from .utils.visualizer import Visualizer
 DATASET_MODES = ("cube", "singlevolume")
 
 
-def to_ndhwc(a: np.ndarray) -> np.ndarray:
-    """A loader batch as (N, Z, Y, X, 1), as the JAX models' ``_to_ndhwc``
-    reads it: (B, 1, z, y, x, 1) from the host chain with addBatchChannel,
-    (z, y, x, 1), (B, z, y, x) or (z, y, x)."""
-    if a.ndim == 6:
-        a = a.reshape((-1,) + a.shape[2:])
-    if a.ndim == 4:
-        a = a[None] if a.shape[-1] == 1 else a[..., None]
-    if a.ndim == 3:
-        a = a[None, ..., None]
-    return np.ascontiguousarray(a, np.float32)
-
-
 def parse(argv=None):
-    """The epoch trainer's options: its datasets and the host chain's tokens."""
-    return train_options.parse(argv, dataset_modes=DATASET_MODES,
-                               check_preprocess=check_host_preprocess)
+    """The epoch trainer's options: its datasets."""
+    return train_options.parse(argv, dataset_modes=DATASET_MODES)
 
 
 def main(argv=None) -> dict:

@@ -18,15 +18,28 @@ computes in float32 and without ``--seed`` it draws a fresh seed, as the
 JAX CLI does; the JAX study's commands (``scripts/run_quality_study.sh``)
 add ``--precision bfloat16 --remat --seed 0`` and, for its ga8 run,
 ``--grad_accum 8``.  It reads the volume (the first TIFF or ``.npy`` in
-``--dataroot``), keeps it on the device, and for each iteration draws an
-augmented crop (rotation, offsets and flips), takes one step of the model
-at the schedule's learning
-rate, and steps the schedule.  With ``--grad_accum N`` an iteration draws
-the N crops' geometry, then the step's probe draws, and cuts each crop just
-before its micro-step (the JAX package's ``per_crop_sampler``; its
-host-window sampler and the environment switches ``NEUROCLEAR_HOST_WINDOW``
-and ``NEUROCLEAR_ACCUM_DEVICE_VOL`` are not ported: the volume stays on the
-card).  The model comes from the registry (``models.create_model``):
+``--dataroot``) into host memory, and for each iteration draws an augmented
+crop (rotation, offsets and flips), takes one step of the model at the
+schedule's learning rate, and steps the schedule.  Where the crops come
+from follows the JAX trainer (it prints the same ``augmentation:`` line):
+
+* the device chain (``SingleVolumeDataset``), which cuts each crop on the
+  device, from the volume uploaded there or, with
+  ``NEUROCLEAR_HOST_WINDOW=1``, from a window of the volume in host memory
+  uploaded alone;
+* with ``--grad_accum N``, an iteration draws the N crops' geometry, then
+  the step's probe draws; Apollo cuts each crop just before its micro-step,
+  from its host window (JAX's ``per_crop_host_window_sampler``: the volume
+  never goes to the card) or, with ``NEUROCLEAR_ACCUM_DEVICE_VOL=1``, from
+  the device volume; with ``--fused_accum`` (and for Athena and Dryops,
+  whose JAX steps take only this form) it cuts the N crops first from the
+  device volume and runs the same micro-steps on them resident together;
+* the host chain (``HostVolumeDataset``, one item per iteration) with
+  ``--host_augment`` or a chain the device path does not take (both
+  rotations, no ``randomcrop``, a 0 in ``--crop_size``); ``--grad_accum``
+  is refused with it, as in JAX.
+
+The model comes from the registry (``models.create_model``):
 Apollo, Athena (``--model axial_to_lateral_gan_athena``, the JAX study's
 ``--conversion_plane yz xy`` command) or Dryops, each drawing its own probes
 from the run's generator (Athena draws none).  Every ``--print_freq``
@@ -41,8 +54,7 @@ thumbnails of them.  The iteration count on resume follows the JAX trainer
 (``--load_iter N`` resumes at N + 1, so the names it writes are the JAX
 trainer's).  ``--profile_dir`` writes a ``torch.profiler`` trace of the
 loop.  It runs on the card unless ``--device cpu`` (or ``--gpu_ids -1``) is
-given.  ``--fused_accum`` and the models of the zoo beyond these three are
-not ported yet (ROADMAP.md).
+given.
 
 On several cards, one process per card:
 
@@ -57,7 +69,8 @@ over the ranks before the one Adam update, batch norm's statistics taken
 over all N crops.  It is the ``--grad_accum N`` step computed on N cards
 (which ``--grad_accum`` > 1 is then refused beside, as in JAX).  Rank 0
 alone prints and writes; every rank keeps its ``--watchdog_secs``.
-``--batch_size`` counts iterations, as in JAX.
+``--batch_size`` counts iterations, as in JAX.  The ranks cut their crops
+from the device volume; the host chain is not run under torchrun.
 """
 
 from __future__ import annotations
@@ -69,12 +82,15 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from . import ops as kernel_ops
 from . import resolve_device
-from .data.singlevolume_dataset import SingleVolumeDataset, volume_path
+from .data.base_dataset import to_ndhwc
+from .data.singlevolume_dataset import (HostVolumeDataset, SingleVolumeDataset,
+                                        device_chain_takes, volume_path)
 from .models import create_model
 from .options import device_of, train_options
 from .parallel.train_parallel import DataParallel, is_main, rank_zero_stdout
@@ -128,8 +144,10 @@ def _seconds(a, b) -> float:
 
 def setup(opt):
     """The trainer's pieces for parsed options: (device, dataset, model);
-    with ``--continue_train`` the model holds the checkpoint and its
-    optimizer state."""
+    the dataset is the device chain's ``SingleVolumeDataset`` or the host
+    chain's ``HostVolumeDataset`` (``--host_augment``, or a chain the
+    device path does not take).  With ``--continue_train`` the model holds
+    the checkpoint and its optimizer state."""
     device = resolve_device(device_of(opt))
     # f32 convs in full f32, as the JAX package's HIGHEST precision
     torch.backends.cudnn.allow_tf32 = False
@@ -137,16 +155,65 @@ def setup(opt):
     train_options.print_options(opt)
     path = volume_path(opt.dataroot)
     vol = tiffio.imread(path)
-    dataset = SingleVolumeDataset(vol, opt.crop_size, opt.preprocess, device)
-    print(f"volume {path} {vol.shape} {vol.dtype} on {device}; crops "
-          f"{tuple(opt.crop_size)} {opt.precision}; augmentation: on-device chain "
-          f"(rotation {dataset.rotate}); seed {opt.seed}", flush=True)
+    if opt.host_augment or not device_chain_takes(opt.preprocess, opt.crop_size):
+        if opt.grad_accum > 1:
+            raise SystemExit("--grad_accum needs the fused on-device sampler (singlevolume "
+                             "dataset, no --host_augment)")
+        if dist.is_initialized():
+            raise NotImplementedError("the host chain under torchrun is not ported "
+                                      f"{train_options.ROADMAP}; the ranks cut their crops "
+                                      "with the device chain")
+        dataset = HostVolumeDataset(vol, opt, np.random.default_rng(opt.seed), path)
+        chain = "host (cv2) chain"
+    else:
+        dataset = SingleVolumeDataset(vol, opt.crop_size, opt.preprocess, device)
+        chain = "fused on-device chain"
+    print(f"volume {path} {vol.shape} {vol.dtype} on the host; crops "
+          f"{tuple(opt.crop_size)} {opt.precision} on {device}; seed {opt.seed}", flush=True)
+    print(f"augmentation: {chain}", flush=True)
     if opt.grad_accum > 1:
         print(f"gradient accumulation: {opt.grad_accum} crops per optimizer step", flush=True)
     model = create_model(opt, device)
     model.init_weights(opt.seed, opt.init_type, opt.init_gain)
     model.setup(opt)
     return device, dataset, model
+
+
+def input_form(opt, dataset, model, dp=None):
+    """The step's input as the JAX trainer chooses it: (name, take), where
+    ``take(generator)`` draws an iteration's crops (before the step's probe
+    draws) and returns ("crop", (1, cz, cy, cx, 1) tensor), ("crops", i ->
+    crop i) or ("batch", (N, cz, cy, cx, 1) tensor).  The environment
+    switches are read only where the JAX trainer reads them."""
+    n = opt.grad_accum
+    if isinstance(dataset, HostVolumeDataset):
+        def host_item(_generator):
+            real = torch.from_numpy(to_ndhwc(dataset[0]["A"]))
+            return "crop", real.to(model.device)
+        return "host chain", host_item
+    if dp is not None:
+        sample = dp.batch_sampler(dataset)
+        return "device volume, one crop per rank", lambda g: ("crop", sample(g))
+    if n > 1 and model.supports_input_sampler:
+        if os.environ.get("NEUROCLEAR_ACCUM_DEVICE_VOL") == "1":
+            return "device volume, per crop", lambda g: (
+                "crops", dataset.per_crop_sampler(g, n))
+        return "host windows, per crop", lambda g: (
+            "crops", dataset.per_crop_host_window_sampler(g, n))
+    if n > 1:
+        return "device volume, resident batch", lambda g: ("batch", dataset.sample_batch(g, n))
+    if os.environ.get("NEUROCLEAR_HOST_WINDOW") == "1":
+        return "host window", lambda g: ("crop", dataset.sample_host_window(g))
+    return "device volume", lambda g: ("crop", dataset.sample(g))
+
+
+def step(model, opt, kind: str, real, draws):
+    """One iteration's step on the input ``input_form`` took: (losses, *outs)."""
+    if kind == "crops":
+        return model.optimize_parameters_accum(real, opt.grad_accum, draws)
+    if kind == "batch":
+        return model.optimize_parameters_batch(real, draws)
+    return model.optimize_parameters(real, draws)
 
 
 def _profiler(opt, device):
@@ -190,12 +257,13 @@ def main(argv=None) -> dict:
 
 def _train(opt) -> dict:
     device, dataset, model = setup(opt)
-    sample = dataset.sample
+    dp = None
     if dist.is_initialized():
         dp = DataParallel(model)
-        sample = dp.batch_sampler(dataset)
         print(f"data parallel over {dp.n} ranks ({dist.get_backend()}), one crop per rank "
               "a step", flush=True)
+    form, take = input_form(opt, dataset, model, dp)
+    print(f"crops from: {form}", flush=True)
     visualizer = Visualizer(opt)
     gen = torch.Generator().manual_seed(opt.seed)
     loaded_iter = opt.load_iter + 1 if opt.load_iter > 0 else 0
@@ -213,20 +281,13 @@ def _train(opt) -> dict:
     while True:
         # the crops' draws first, then the step's probe draws, as the JAX
         # trainer takes the sampler's key before the step's
-        if opt.grad_accum > 1:
-            geometry = [dataset.draws(gen) for _ in range(opt.grad_accum)]
-        else:
-            real = sample(gen)
-        draws = model.draw_probes(opt.crop_size, gen)
+        kind, real = take(gen)
+        draws = model.draw_probes(opt.crop_size if kind == "crops" else real.shape[1:4], gen)
         iter_start_time = time.time()
         if (total_iters - loaded_iter) % opt.print_freq == 0:
             t_data = iter_start_time - iter_data_time
         total_iters += opt.batch_size
-        if opt.grad_accum > 1:
-            step_losses, *_ = model.optimize_parameters_accum(
-                lambda i: dataset.crop(*geometry[i]), opt.grad_accum, draws)
-        else:
-            step_losses, *_ = model.optimize_parameters(real, draws)
+        step_losses, *_ = step(model, opt, kind, real, draws)
         values = torch.stack([step_losses[n] for n in names])
         if opt.max_iters:
             steps.append(values)
@@ -283,8 +344,8 @@ def _train(opt) -> dict:
     print(f"kernel launches: {json.dumps(launches)}", flush=True)
     print(f"step seconds (device clock): {json.dumps(secs)}", flush=True)
     return {"losses": losses, "step_seconds": secs, "checkpoints": paths,
-            "visuals": snapshots, "device": device, "model": model,
-            "total_iters": total_iters}
+            "visuals": snapshots, "device": device, "model": model, "dataset": dataset,
+            "form": form, "total_iters": total_iters}
 
 
 if __name__ == "__main__":

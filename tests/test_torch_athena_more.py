@@ -54,3 +54,23 @@ def test_accumulation_is_the_mean_of_the_crops_gradients(accum):
     for j, acc in enumerate(list(gg) + list(dg)):
         mean = sum((p[3] + p[4])[j] for p in per) / 2
         assert torch.linalg.vector_norm(acc - mean) <= 1e-6 * torch.linalg.vector_norm(mean)
+
+
+def test_fused_accum_step_matches_grad_accum_scan(accum, monkeypatch):
+    """``--fused_accum`` (the two crops resident together,
+    ``optimize_parameters_batch``; JAX's Athena step takes only this form):
+    its losses and the gradients that reach its update against
+    ``grad_accum_scan``'s, at the accumulation's bars."""
+    (jl, _, _, jg, jd), model, crops = accum
+    seen = []
+    monkeypatch.setattr(model, "apply_gradients", lambda g, d: seen.append((g, d)))
+    losses, *_ = model.optimize_parameters_batch(torch.from_numpy(crops), None)
+    for name in LOSS_NAMES:
+        assert float(losses[name]) == pytest.approx(jl[name], rel=1e-4), name
+    (gg, dg), = seen
+    _assert_grads(_flat_of(model, D_NAMES, dg), jd, D_REL_L2)
+    pg = _flat_of(model, G_NAMES, gg)
+    _assert_grads({k: v for k, v in pg.items() if k.startswith("G_B.")},
+                  {k: v for k, v in jg.items() if k.startswith("G_B.")}, D_REL_L2)
+    _assert_grads({k: v for k, v in pg.items() if k.startswith("G_A.")},
+                  {k: v for k, v in jg.items() if k.startswith("G_A.")}, G_A_REL_L2)

@@ -57,3 +57,18 @@ def test_accumulation_is_the_mean_of_the_crops_gradients(accum):
     for j, acc in enumerate(list(gg) + list(dg)):
         mean = sum((p[2] + p[3])[j] for p in per) / 2
         assert torch.linalg.vector_norm(acc - mean) <= 1e-6 * torch.linalg.vector_norm(mean)
+
+
+def test_fused_accum_step_matches_grad_accum_scan(accum, monkeypatch):
+    """``--fused_accum`` (the two crops resident together,
+    ``optimize_parameters_batch``; JAX's Dryops step takes only this form):
+    its losses and the gradients that reach its update against the
+    accumulation's referee."""
+    (jl, _, jax64), model, crops, draws = accum
+    seen = []
+    monkeypatch.setattr(model, "apply_gradients", lambda g, d: seen.append((g, d)))
+    losses, *_ = model.optimize_parameters_batch(torch.from_numpy(crops), draws)
+    for name in LOSS_NAMES:
+        assert float(losses[name]) == pytest.approx(jl[name], rel=1e-4), name
+    (gg, dg), = seen
+    _assert_grads({**_flat_of(model, G_NAMES, gg), **_flat_of(model, D_NAMES, dg)}, jax64)

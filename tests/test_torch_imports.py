@@ -50,13 +50,16 @@ def test_port_and_chip_smoke_import_without_jax():
     """)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 45, proc.stdout
+    assert n >= 51, proc.stdout
     for name in ("ops.rotation", "nn.schedulers", "options.train_options", "utils.visualizer",
                  "train", "data.warp", "data.cube_dataset", "data.simulationcrop_dataset",
                  "models.axial_to_lateral_gan_athena_model",
                  "models.axial_to_lateral_gan_dryops_model", "utils.image_pool", "nn.norms",
                  "nn.factory", "nn.generators", "nn.discriminators",
-                 "parallel.train_parallel", "parallel.dice_infer"):
+                 "parallel.train_parallel", "parallel.dice_infer", "utils.synthetic",
+                 "scripts.generate_synthetic", "scripts.diagnose_quality",
+                 "scripts.eval_saved_volumes", "scripts.select_checkpoint",
+                 "scripts.run_quality_study"):
         assert f"neuroclear_tpu_torch.{name}" in proc.stdout.split(), name
 
 

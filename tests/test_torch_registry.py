@@ -84,12 +84,28 @@ def test_study_athena_command_parses_through_the_registry():
 
 
 @pytest.mark.parametrize("extra", [["--netG", "unet_twoouts"], ["--netG_B", "resnet_9blocks"],
-                                   ["--model", "cycle_gan"], ["--fused_accum"]])
+                                   ["--model", "cycle_gan"]])
 def test_what_is_not_ported_is_refused_for_athena(extra):
     argv = ["--dataroot", "x", "--model", "axial_to_lateral_gan_athena", "--device", "cpu",
             *extra]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_options.parse(argv)
+
+
+@pytest.mark.parametrize("model, per_crop", [("axial_to_lateral_gan_apollo", True),
+                                             ("axial_to_lateral_gan_athena", False),
+                                             ("axial_to_lateral_gan_dryops", False)])
+@pytest.mark.parametrize("fused", [False, True])
+def test_the_accumulation_form_is_jaxs(model, per_crop, fused):
+    """``--grad_accum 2`` with and without ``--fused_accum``: only Apollo
+    without it takes its crops one at a time from a sampler (JAX's
+    ``supports_input_sampler``); Athena and Dryops take the resident batch,
+    as their JAX steps do (tests/test_torch_fused_accum.py runs the forms)."""
+    argv = ["--dataroot", "x", "--model", model, "--device", "cpu", "--grad_accum", "2",
+            *(["--fused_accum"] if fused else [])]
+    opt = train_options.parse(argv)
+    assert opt.fused_accum == fused
+    assert models.create_model(opt, "cpu").supports_input_sampler == (per_crop and not fused)
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])

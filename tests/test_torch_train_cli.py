@@ -131,10 +131,8 @@ def test_crop_draws_cover_the_inclusive_range():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--fused_accum"], ["--grad_accum", "2", "--dataset_mode", "cube"],
-    ["--netG", "VGG"], ["--netG_B", "unet_twoouts"],
-    ["--preprocess",
-     "random3Drotate_random90rotate_randomcrop_randomflip_addColorChannel_addBatchChannel"]])
+    ["--grad_accum", "2", "--dataset_mode", "cube"], ["--netG", "VGG"],
+    ["--netG_B", "unet_twoouts"]])
 def test_options_not_ported_are_refused(tmp_path, extra):
     argv = ["--dataroot", str(tmp_path / "missing.npy"), "--device", "cpu", *ARGS, *extra]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -227,7 +225,11 @@ def test_defaults_are_the_jax_clis(tmp_path, capsys):
     (["--input_nc", "1", "--output_nc", "1"], None), (["--n_layers_D", "5"], None),
     (["--no_dropout"], None), (["--num_threads", "4"], None), (["--display_id", "0"], None),
     (["--no_html", "--update_html_freq", "10"], None),
-    (["--init_gain", "0.1", "--init_type", "xavier"], None), (["--profile_dir", "p"], None)])
+    (["--init_gain", "0.1", "--init_type", "xavier"], None), (["--profile_dir", "p"], None),
+    (["--fused_accum", "--grad_accum", "8"], None), (["--host_augment"], None),
+    (["--preprocess",
+      "random3Drotate_random90rotate_randomcrop_randomflip_addColorChannel_addBatchChannel"],
+     None)])
 def test_jax_flags_are_accepted(flags, device):
     opt = train_options.parse(["--dataroot", "x", "--seed", "1", *flags])
     if device is not None:
@@ -236,7 +238,7 @@ def test_jax_flags_are_accepted(flags, device):
 
 @pytest.mark.parametrize("flags", [
     ["--gpu_ids", "0,1"], ["--ngf", "32"], ["--ndf", "128"], ["--input_nc", "2"],
-    ["--output_nc", "3"], ["--netG", "resnet_6blocks"], ["--fused_accum", "--grad_accum", "8"]])
+    ["--output_nc", "3"], ["--netG", "resnet_6blocks"]])
 def test_jax_flag_values_not_ported_are_refused(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_options.parse(["--dataroot", "x", "--seed", "1", *flags])
