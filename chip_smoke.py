@@ -38,7 +38,11 @@ Phases, each printed with its name, seconds and result:
      during the harvest read back equal to the volume in memory, the output
      held on the slice's bounds against the slice's f32 plain output and
      against the same route on the plain versions in bf16, and the device
-     metrics against the host float64 path;
+     metrics against the host float64 path; with JAX's ``--model test
+     --add_date --verbose``: the checkpoint loaded from the dated directory
+     is ``iter_1_net_G_A.npz`` (not the ``iter_1_net_Gtest.npz`` written
+     beside it, which ``--model`` read as ``--model_suffix`` would load) and
+     the generator printed;
   7. legacy: ``test_dice.main --legacy_pipeline`` (the per-cube loop, each
      cube alone in f32 through the model and back to the host, then
      ``Assemble_Dice``) on the slice's volume, weights and flags (27 cubes of
@@ -68,8 +72,12 @@ Phases, each printed with its name, seconds and result:
      weights, crop and draws three ways (kernels in bf16, plain versions in
      bf16, plain versions in f32), the kernel path's losses and gradients
      held against f32 no worse than the plain bf16 path's, and each gradient
-     tensor against the plain bf16 step's; and the written G_A checkpoint
-     run through ``test_dice.main``;
+     tensor against the plain bf16 step's; the written G_A checkpoint
+     run through ``test_dice.main``; one step at JAX's defaults
+     (``--preprocess none --crop_size 0 0 0``: the host chain's item, the
+     whole 160^3 volume), its launches exact; two steps with
+     ``--min_projection_depth 5``, each drawn depth in [5, 10], and the
+     model's depth draws taking every value of [5, 10] and no other;
   9. resume: the production command with ``--lr_policy linear`` for three
      steps, then ``--continue_train --load_iter 3``: the reloaded
      parameters, Adam state and schedule position equal to the first run's
@@ -104,6 +112,11 @@ Phases, each printed with its name, seconds and result:
      ``--fused_accum``): the fused form bitwise the device volume's, the
      host-window crops within JAX's border bound of the device volume's,
      each run's peak memory and a host-window crop's seconds;
+  11b. study status: ``python -m neuroclear_tpu_torch.scripts.study_status``
+     over the repository's banks (``study_state/``): one row per study of
+     the queue, each with the newest ``iter_*_optim.npz`` of its bank in
+     this copy; then ``study_status.rows`` over a bank and a log directory
+     made here, the row of a finished study required;
   12. athena: the JAX study's Athena command (``--model
      axial_to_lateral_gan_athena --conversion_plane yz xy``, 128^3 crops,
      ``--remat``, bf16) through ``train_onecube.main`` on a synthetic 256^3
@@ -125,7 +138,10 @@ Phases, each printed with its name, seconds and result:
      host chain's rotation against scipy float64;
   15. trained G_A: the slice's tile pipeline on the JAX study's trained
      Apollo G_A, its launches, its bf16 output against the plain versions
-     in f32 and in bf16 within ``TRAINED_KP_*``;
+     in f32 and in bf16 within ``TRAINED_KP_*``; then ``test_dice --model
+     axial_to_lateral_gan_apollo`` from the study's bank (G_A and G_B
+     loaded, as JAX's test_dice loads them), its output bit for bit the
+     first run's;
   16. vanilla: Apollo's production command in bf16 with ``--netG
      unet_vanilla`` at 112^3 (it pools three times) through
      ``train_onecube.main`` on a synthetic 176^3 TIFF, random Kaiming
@@ -190,6 +206,8 @@ import argparse
 import contextlib
 import copy
 import faulthandler
+import glob
+import io
 import json
 import math
 import os
@@ -224,11 +242,11 @@ from neuroclear_tpu_torch.nn.generators import UNetDeconv
 from neuroclear_tpu_torch.nn.schedulers import LRController
 from neuroclear_tpu_torch.ops import build, conv3x3, inorm, rotation, wconv
 from neuroclear_tpu_torch.ops.augment import crop_draws, window_plan
-from neuroclear_tpu_torch.options import test_options, train_options
+from neuroclear_tpu_torch.options import date_stamp, test_options, train_options
 from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
 from neuroclear_tpu_torch.scripts import (generate_synthetic, run_quality_study,
-                                          select_checkpoint)
+                                          run_study_queue, select_checkpoint, study_status)
 from neuroclear_tpu_torch.utils import png, synthetic, tiffio
 from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import init_flat, load_npz, params_from_numpy
@@ -325,6 +343,29 @@ PRODUCTION_ARGS = [
 TRAIN_ARGS = [*PRODUCTION_ARGS, "--precision", "bfloat16"]
 F32_ITERS = 2
 NO_ROTATION = ["--preprocess", "randomcrop_randomflip_addColorChannel_addBatchChannel"]
+
+
+def drop_flags(args: list, flags: dict) -> list:
+    """``args`` without each flag of ``flags`` ({flag: its number of values})."""
+    out, i = [], 0
+    while i < len(args):
+        if args[i] in flags:
+            i += 1 + flags[args[i]]
+        else:
+            out.append(args[i])
+            i += 1
+    return out
+
+
+# JAX's trainer defaults (--preprocess none --crop_size 0 0 0): the train
+# phase's command without those two flags takes one step on the host
+# chain's item, the whole 160^3 volume
+JAX_DEFAULT_ARGS = drop_flags(TRAIN_ARGS, {"--preprocess": 1, "--crop_size": 3})
+# --min_projection_depth: two steps of the train phase's command with the
+# MIP depth drawn on [5, 10]; then MIN_DEPTH_DRAWS of the model's depth
+# draws from a seeded generator must take every value of it and no other
+# (a lower bound of 2 shows in them with a chance of 1 - (6/9)^512)
+MIN_DEPTH, MIN_DEPTH_ITERS, MIN_DEPTH_DRAWS = 5, 2, 512
 # Rotated crops held against scipy's float64 bilinear map over the slab:
 # angles away from the multiples of 90 degrees (where sin or cos is zero and
 # a flipped sign or a transposed map would not show), and the bound: the
@@ -1227,6 +1268,71 @@ def dense_k_route():
         del os.environ["NEUROCLEAR_PALLAS_CONV"]
 
 
+# test_dice's JAX flags: --model test (JAX's TestModel, which loads
+# G{model_suffix}; read as --model_suffix by argparse's prefix match it
+# would load the decoy iter_1_net_Gtest.npz written beside the checkpoint),
+# --add_date (the checkpoint and results directories take the stamp) and
+# --verbose (the generator printed)
+DICE_JAX_FLAGS = ["--model", "test", "--add_date", "--verbose"]
+
+
+class Tee(io.StringIO):
+    """Standard output kept as well as printed."""
+
+    def __init__(self):
+        super().__init__()
+        self.out = sys.stdout
+
+    def write(self, s):
+        self.out.write(s)
+        return super().write(s)
+
+
+def dated_checkpoint(ckpt: str, name: str, flat: dict) -> None:
+    """``flat`` as ``iter_1_net_G_A.npz`` under ``ckpt/<stamp>_<name>`` for
+    this minute's stamp and the next's (``--add_date`` takes the stamp when
+    it parses), with the decoy ``iter_1_net_Gtest.npz`` beside it."""
+    d = os.path.join(ckpt, name)
+    os.makedirs(d)
+    np.savez(os.path.join(d, "iter_1_net_G_A.npz"), **flat)
+    os.symlink("iter_1_net_G_A.npz", os.path.join(d, "iter_1_net_Gtest.npz"))
+    t = time.time()
+    for stamp in {date_stamp(t), date_stamp(t + 60)}:
+        os.symlink(name, os.path.join(ckpt, f"{stamp}_{name}"))
+
+
+def check_dice_jax_flags(res: dict, printed: str, name: str) -> str:
+    """The checkpoint ``--model test --add_date`` loaded and the generator
+    ``--verbose`` printed; returns the dated name."""
+    loaded = res["loaded"][0]
+    dated = os.path.basename(os.path.dirname(loaded))
+    if (len(res["loaded"]) != 1 or not re.fullmatch(rf"\d{{8}}-\d{{4}}_{name}", dated)
+            or os.path.basename(loaded) != "iter_1_net_G_A.npz"):
+        raise AssertionError(f"test_dice --model test --add_date loaded {loaded}, not "
+                             f"<stamp>_{name}/iter_1_net_G_A.npz")
+    if os.path.basename(os.path.dirname(res["web_dir"])) != dated:
+        raise AssertionError(f"the results directory {res['web_dir']} has not the stamp")
+    if "UNetDeconv(" not in printed:
+        raise AssertionError("test_dice --verbose printed no generator")
+    return dated
+
+
+def dice_jax_flags_run(seed: int, tmp: str) -> str:
+    """``test_dice`` with ``DICE_JAX_FLAGS`` on a small volume (72^3, 48^3
+    tiles), held by ``check_dice_jax_flags``."""
+    small = os.path.join(tmp, "small")
+    os.makedirs(small)
+    np.save(os.path.join(small, "volume.npy"), synthetic_volume(seed + 3, 72))
+    dated_checkpoint(os.path.join(tmp, "ckpt"), "flags", init_flat(UNetDeconv(1, 1), seed=seed))
+    with contextlib.redirect_stdout(Tee()) as out:
+        res = test_dice.main(["--dataroot", small, "--name", "flags",
+                              "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--load_iter", "1",
+                              "--model_suffix", "_A", "--dice_size", "48", "48", "48",
+                              "--overlap", "8", "--border_cut", "4", "--results_dir",
+                              os.path.join(tmp, "results"), *DICE_JAX_FLAGS])
+    return check_dice_jax_flags(res, out.getvalue(), "flags")
+
+
 def run_dice_cli(seed: int, dev, tmp: str, sl: dict) -> dict:
     """The test_dice CLI with the dense-K conv switched on: its launches, the
     streamed TIFF, the output on the slice's bounds against the slice phase's
@@ -1235,16 +1341,15 @@ def run_dice_cli(seed: int, dev, tmp: str, sl: dict) -> dict:
     vol = synthetic_volume(seed)
     tiffio.imwrite(os.path.join(tmp, "data", "volume.tif"), vol)
     tiffio.imwrite(os.path.join(tmp, "gt", "volume.tif"), synthetic_volume(seed, noise=0.0))
-    os.makedirs(os.path.join(tmp, "ckpt", "smoke"))
     flat = init_flat(UNetDeconv(1, 1), seed=seed)
-    np.savez(os.path.join(tmp, "ckpt", "smoke", "iter_1_net_G_A.npz"), **flat)
+    dated_checkpoint(os.path.join(tmp, "ckpt"), "smoke", flat)
     grid = DiceGrid(pad_for_dicing(vol, 120, 15).shape, 120, 15, 10)
     batches = grid.z_steps * -(-(grid.y_steps * grid.x_steps) // 2)
     expected = {name: 0 for name in kernel_ops.KERNELS}
     expected.update({"wconv3x3x3": 2 * batches, "conv3x3": 4 * batches,
                      "pair_sums": 10 * batches, "affine_map_act": 10 * batches})
 
-    with dense_k_route():
+    with dense_k_route(), contextlib.redirect_stdout(Tee()) as printed:
         kernel_ops.reset_launches()
         res = test_dice.main(["--dataroot", os.path.join(tmp, "data"),
                               "--dataroot_gt", os.path.join(tmp, "gt"), "--name", "smoke",
@@ -1253,12 +1358,15 @@ def run_dice_cli(seed: int, dev, tmp: str, sl: dict) -> dict:
                               os.path.join(tmp, "results"), "--serial_batches", "--preprocess",
                               "addColorChannel", "--dataset_mode", "diceImage", "--netG",
                               "unet_deconv", "--image_dimension", "3", "--save_volume",
-                              "--save_projections", *SLICE_ARGS])
+                              "--save_projections", *SLICE_ARGS, *DICE_JAX_FLAGS])
         launches = kernel_ops.launches()
         route_plain, route_plain_s = plain_outputs(flat, vol, dev, ("bfloat16",))
     log(f"  launches {launches}, expected {expected} ({batches} generator applications)")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
+    dated = check_dice_jax_flags(res, printed.getvalue(), "smoke")
+    log(f"  {' '.join(DICE_JAX_FLAGS)}: loaded {dated}/iter_1_net_G_A.npz (its decoy "
+        f"iter_1_net_Gtest.npz beside it untouched), the generator printed")
 
     out = res["fake"]
     if out.shape != vol.shape or out.dtype != np.uint16 or out.std() == 0:
@@ -1726,6 +1834,9 @@ def run_train(seed: int, dev, tmp: str) -> dict:
         raise AssertionError("the f32 production steps are not f32 or not finite")
     del f32
 
+    jd = run_jax_defaults_step(seed, data, ckpt)
+    md = run_min_depth(seed, data, ckpt)
+
     rot = check_rotation(vol, dev, seed)
     pooled = check_step_three_ways(seed, vol, dev)
 
@@ -1743,7 +1854,63 @@ def run_train(seed: int, dev, tmp: str) -> dict:
         raise AssertionError(f"trained G_A output {vol_out.shape} {vol_out.dtype} "
                              f"std {vol_out.std()}")
     return {"launches": launches, "f32_launches": f32_launches, "step_ms": step_ms,
-            "flat_ms": flat_ms, "rotation": rot, "losses": res["losses"][-1], "pooled": pooled}
+            "flat_ms": flat_ms, "rotation": rot, "losses": res["losses"][-1], "pooled": pooled,
+            "defaults_launches": jd["launches"], "defaults_ms": jd["step_ms"],
+            "min_depth_launches": md["launches"], "depths": md["depths"]}
+
+
+def run_jax_defaults_step(seed: int, data: str, ckpt: str) -> dict:
+    """One step of the train phase's command without --preprocess and
+    --crop_size (JAX's defaults): the host chain's item, the whole volume,
+    through the kernels (launches exact)."""
+    kernel_ops.reset_launches()
+    res = train_onecube.main(["--dataroot", data, "--name", "smoke_jax_defaults",
+                              "--checkpoints_dir", ckpt, *JAX_DEFAULT_ARGS, "--max_iters", "1",
+                              "--seed", str(seed)])
+    launches = kernel_ops.launches()
+    shape = tuple(res["model"].visuals["real"].shape)
+    log(f"  JAX's defaults (--preprocess none --crop_size 0 0 0): crops from {res['form']}, "
+        f"input {shape}, one step {1e3 * res['step_seconds'][0]:.1f} ms, launches {launches}")
+    if res["form"] != "host chain" or shape != (1, *(TRAIN_VOLUME,) * 3, 1):
+        raise AssertionError(f"JAX's defaults trained on {shape} from {res['form']}, not the "
+                             "whole volume from the host chain")
+    if launches != STEP_LAUNCHES:
+        raise AssertionError(f"launch counts {launches} != {STEP_LAUNCHES}")
+    if not all(math.isfinite(v) for v in res["losses"][0].values()):
+        raise AssertionError(f"a loss is not finite: {res['losses'][0]}")
+    return {"launches": launches, "step_ms": 1e3 * res["step_seconds"][0]}
+
+
+def check_min_depth(model, depths: list) -> list:
+    """The steps' MIP depths in [MIN_DEPTH, projection_depth], and
+    MIN_DEPTH_DRAWS of the model's depth draws every value of it and no
+    other; returns the values drawn."""
+    hi = model.cfg.projection_depth
+    gen = torch.Generator().manual_seed(0)
+    drawn = sorted({model.draw_probes((CROP,) * 3, gen).depth for _ in range(MIN_DEPTH_DRAWS)})
+    if any(not MIN_DEPTH <= d <= hi for d in depths) or drawn != list(range(MIN_DEPTH, hi + 1)):
+        raise AssertionError(f"--min_projection_depth {MIN_DEPTH}: the steps drew {depths}, "
+                             f"the model's draws took {drawn}, not [{MIN_DEPTH}, {hi}]")
+    return drawn
+
+
+def run_min_depth(seed: int, data: str, ckpt: str) -> dict:
+    """MIN_DEPTH_ITERS steps of the train phase's command with
+    --min_projection_depth MIN_DEPTH (launches exact), held by
+    ``check_min_depth``."""
+    kernel_ops.reset_launches()
+    res = train_onecube.main(["--dataroot", data, "--name", "smoke_min_depth",
+                              "--checkpoints_dir", ckpt, *TRAIN_ARGS, "--min_projection_depth",
+                              str(MIN_DEPTH), "--max_iters", str(MIN_DEPTH_ITERS), "--seed",
+                              str(seed)])
+    launches = kernel_ops.launches()
+    expected = {k: MIN_DEPTH_ITERS * v for k, v in STEP_LAUNCHES.items()}
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    drawn = check_min_depth(res["model"], res["depths"])
+    log(f"  --min_projection_depth {MIN_DEPTH}: the steps drew depths {res['depths']}; "
+        f"{MIN_DEPTH_DRAWS} of the model's draws took {drawn}; launches exact")
+    return {"launches": launches, "depths": res["depths"]}
 
 
 def _model_state_diffs(a, b) -> list:
@@ -2273,6 +2440,39 @@ def run_quality(seed: int, dev, tmp: str) -> dict:
 QUALITY_700 = {"input": (21.49, 0.459), "output": (19.86, 0.446)}
 
 
+def run_study_status(tmp: str) -> list:
+    """``python -m neuroclear_tpu_torch.scripts.study_status`` over this
+    copy's ``study_state/``: one row per study of the queue with the newest
+    ``iter_*_optim.npz`` of its bank; then its rows over a bank and log
+    directory made here, of a finished study."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m", "neuroclear_tpu_torch.scripts.study_status"],
+                         cwd=here, capture_output=True, text=True, timeout=120, check=True).stdout
+    rows = [ln for ln in out.splitlines() if not ln.startswith(" ")]
+    for ln in out.splitlines():
+        log(f"    status | {ln}")
+    want = []
+    for study in run_study_queue.STUDIES:
+        its = [int(m.group(1)) for p in glob.glob(os.path.join(here, "study_state", study.bank,
+                                                               "iter_*_optim.npz"))
+               if (m := re.search(r"iter_(\d+)_optim\.npz$", p))]
+        want.append(f"{study.bank:<14} banked {max(its, default=0):>6} / {study.max_iters:<6}")
+    if len(rows) != len(want) or not all(r.startswith(w) for r, w in zip(rows, want)):
+        raise AssertionError(f"study_status rows {rows}, expected them to start {want}")
+    bank = os.path.join(tmp, "study_state", "athena148")
+    log_dir = os.path.join(tmp, ".study", "log_art")
+    os.makedirs(bank)
+    os.makedirs(log_dir)
+    open(os.path.join(bank, "iter_3000_optim.npz"), "w").close()
+    open(os.path.join(log_dir, "eval_final.done"), "w").close()
+    with open(os.path.join(log_dir, "driver.log"), "w") as f:
+        f.write("ALL DONE 00:00:00\n")
+    made = study_status.rows(tmp)
+    if made[-1] != "athena148      banked   3000 / 3000    final-eval done  ALL DONE 00:00:00":
+        raise AssertionError(f"study_status over a finished study: {made}")
+    return rows
+
+
 def run_quality700(tmp: str) -> dict:
     """``--quality700``: the JAX study's eval of its iteration 11000 redone
     in the port: the 700^3 s4 volumes regenerated, ``test_dice`` with the
@@ -2627,11 +2827,32 @@ def run_epoch(seed: int, dev, tmp: str) -> dict:
 def run_trained_dice(seed: int, dev, tmp: str) -> dict:
     """The slice's tile pipeline (``test_dice.main``, its flags and volume)
     on the JAX study's trained Apollo G_A: launches as the slice's, the
-    output against the plain versions in f32 and in bf16 within TRAINED_*."""
-    return dice_against_plain("trained G_A", TRAINED_G_A, synthetic_volume(seed), tmp, dev,
-                              SLICE_ARGS, {"wconv3x3x3": 2, "pair_sums": 10,
-                                           "affine_map_act": 10},
-                              (TRAINED_KP_MAX_LSB, TRAINED_KP_MEAN_LSB))
+    output against the plain versions in f32 and in bf16 within TRAINED_*;
+    then ``--model axial_to_lateral_gan_apollo`` from the study's bank (its
+    G_A and G_B loaded, as JAX's test_dice loads them): the slice's
+    launches, the output bit for bit the ``--model_suffix _A`` run's."""
+    tg = dice_against_plain("trained G_A", TRAINED_G_A, synthetic_volume(seed), tmp, dev,
+                            SLICE_ARGS, {"wconv3x3x3": 2, "pair_sums": 10,
+                                         "affine_map_act": 10},
+                            (TRAINED_KP_MAX_LSB, TRAINED_KP_MEAN_LSB))
+    kernel_ops.reset_launches()
+    res = test_dice.main(["--dataroot", os.path.join(tmp, "trained G_A", "data"),
+                          "--checkpoints_dir", os.path.dirname(STUDY_STATE), "--name",
+                          os.path.basename(STUDY_STATE), "--load_iter", str(STUDY_LOAD_ITER),
+                          "--model", "axial_to_lateral_gan_apollo", "--results_dir",
+                          os.path.join(tmp, "gan_model"), *SLICE_ARGS])
+    tg["gan_launches"] = kernel_ops.launches()
+    names = [os.path.basename(p) for p in res["loaded"]]
+    log(f"  --model axial_to_lateral_gan_apollo: loaded {names}, launches "
+        f"{tg['gan_launches']}")
+    if tg["gan_launches"] != tg["launches"] or names != [
+            f"iter_{STUDY_LOAD_ITER}_net_G_A.npz", f"iter_{STUDY_LOAD_ITER}_net_G_B.npz"]:
+        raise AssertionError(f"--model axial_to_lateral_gan_apollo loaded {names}, launched "
+                             f"{tg['gan_launches']}, not the slice's {tg['launches']}")
+    if not np.array_equal(res["fake"], tg["out"]):
+        raise AssertionError("--model axial_to_lateral_gan_apollo's output differs from "
+                             "--model_suffix _A's on the same G_A")
+    return tg
 
 
 def profile_athena_step(dev, seed: int) -> None:
@@ -2944,7 +3165,7 @@ def dice_against_plain(label: str, g_a: str, vol: np.ndarray, tmp: str, dev, arg
         raise AssertionError(f"{label}: kernels off the plain path: max {kp.max()}, mean "
                              f"{kp.mean()}")
     return {"launches": launches, "k_err": k_err, "p_err": p_err, "kp_max": int(kp.max()),
-            "kp_mean": float(kp.mean()), "seconds": res["seconds"]}
+            "kp_mean": float(kp.mean()), "seconds": res["seconds"], "out": out}
 
 
 def run_vanilla(seed: int, dev, tmp: str) -> dict:
@@ -3859,7 +4080,9 @@ def main(argv=None) -> int:
     with Phase("train") as ph, tempfile.TemporaryDirectory() as tmp:
         tr = run_train(args.seed, dev, tmp)
         ph.result = (f"{CROP}^3 Apollo step {tr['step_ms']:.1f} ms with rotation, "
-                     f"{tr['flat_ms']:.1f} ms without (medians of {TRAIN_ITERS - 1}), rotated "
+                     f"{tr['flat_ms']:.1f} ms without (medians of {TRAIN_ITERS - 1}), "
+                     f"{TRAIN_VOLUME}^3 at JAX's defaults {tr['defaults_ms']:.1f} ms, "
+                     f"--min_projection_depth {MIN_DEPTH} depths {tr['depths']}, rotated "
                      f"crops within {tr['rotation']['max_abs_err']:.3g} of float64, gradient "
                      f"error against f32 (kernels / plain bf16) {tr['pooled']}")
 
@@ -3885,6 +4108,9 @@ def main(argv=None) -> int:
                      f"crops {QUALITY_CROP_DRAWS - qs['unequal']} of {QUALITY_CROP_DRAWS} "
                      f"bitwise, peaks " + ", ".join(f"{k} {v['peak_gib']:.3f} GiB"
                                                    for k, v in qs["runs"].items()))
+
+    with Phase("study status") as ph, tempfile.TemporaryDirectory() as tmp:
+        ph.result = f"{len(run_study_status(tmp))} studies' rows, the banks' newest checkpoints"
 
     with Phase("athena") as ph, tempfile.TemporaryDirectory() as tmp:
         at = run_athena(args.seed, dev, tmp)
@@ -3979,11 +4205,16 @@ def main(argv=None) -> int:
         by_path = {"slice": sl["launches"][name], "dice": dc["launches"][name],
                    "legacy": lg["launches"][name], "legacy_tta": lg["tta_launches"][name],
                    "run": lg["run_launches"][name], "train": tr["launches"][name],
-                   "train_f32": tr["f32_launches"][name], "resume": rs["launches"][name],
+                   "train_f32": tr["f32_launches"][name],
+                   "train_jax_defaults": tr["defaults_launches"][name],
+                   "train_min_depth": tr["min_depth_launches"][name],
+                   "resume": rs["launches"][name],
                    "study": st["launches"][name], "quality": qs["launches"][name],
                    "athena": at["launches"][name],
                    "dryops": dr["launches"][name], "epoch": ep["launches"][name],
-                   "trained_dice": tg["launches"][name], "vanilla": vn["launches"][name],
+                   "trained_dice": tg["launches"][name],
+                   "trained_dice_gan_model": tg["gan_launches"][name],
+                   "vanilla": vn["launches"][name],
                    "vanilla_dice": vn["dice_launches"][name],
                    "batchnorm": bn["launches"][name],
                    "batchnorm_dice": bn["dice_launches"][name], "zoo": zo["launches"][name],

@@ -54,8 +54,13 @@ the generator's axial sigma applied along x; the checkpoint selection
 (``check_selection``) with a selection of the newest eval instead of the
 argmax; the accum-2 study step three ways (``quality_accum_three_ways``)
 with a host window sliced one voxel off in y and with a fused form that
-cuts its crops from other draws than the step's.  It exits nonzero unless
-the runs as they are pass their checks and every fault fails one.
+cuts its crops from other draws than the step's.  Last, the checks of the
+JAX argv (``cli_failures``): the train phase's ``--min_projection_depth``
+steps and depth draws (``run_min_depth``) with a depth sampler that keeps
+the lower bound 2, and ``test_dice --model test --add_date --verbose``
+(``dice_jax_flags_run``) with a parser that has no ``--model`` (argparse
+then reads ``--model test`` as ``--model_suffix test``).  It exits nonzero
+unless the runs as they are pass their checks and every fault fails one.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ from neuroclear_tpu_torch.nn.factory import define_D, define_G
 from neuroclear_tpu_torch.utils.weights import init_flat, params_from_numpy
 from neuroclear_tpu_torch.nn import generators
 from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
+from neuroclear_tpu_torch.options import test_options
 from neuroclear_tpu_torch.scripts import select_checkpoint
 from neuroclear_tpu_torch.utils import synthetic
 from neuroclear_tpu_torch.utils.assemble import Assemble_Dice
@@ -795,6 +801,68 @@ def quality_failures(seed, dev) -> bool:
     return ok
 
 
+def _min_depth_ignored(f):
+    def fn(cfg, generator):
+        if not cfg.randomize_projection_depth:
+            return cfg.projection_depth
+        return int(torch.randint(2, cfg.projection_depth + 1, (), generator=generator))
+    return fn
+
+
+def _model_flag_dropped(f):
+    """The test parser without ``--model`` (its default kept): argparse
+    expands ``--model test`` to ``--model_suffix test`` by prefix."""
+    def fn(argv=None):
+        p = f(argv)
+        action = p._option_string_actions.pop("--model")
+        p._actions.remove(action)
+        for group in p._action_groups:
+            if action in group._group_actions:
+                group._group_actions.remove(action)
+        p.set_defaults(model="test")
+        return p
+    return fn
+
+
+def cli_failures(seed, dev) -> bool:
+    """The JAX argv's checks as they are and with their faults."""
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        cs.tiffio.imwrite(os.path.join(data, "volume.tif"),
+                          cs.synthetic_volume(seed, cs.TRAIN_VOLUME))
+        n = iter(range(100))
+
+        def min_depth():
+            cs.run_min_depth(seed, data, os.path.join(tmp, f"ck{next(n)}"))
+
+        def dice_flags():
+            cs.dice_jax_flags_run(seed, os.path.join(tmp, f"dice{next(n)}"))
+
+        checks = [
+            ("--min_projection_depth", min_depth,
+             [("the depth drawn from 2", _swapped(gan_common, "sample_projection_depth",
+                                                  _min_depth_ignored))]),
+            ("test_dice JAX flags", dice_flags,
+             [("--model read as --model_suffix", _swapped(test_options, "build_parser",
+                                                          _model_flag_dropped))]),
+        ]
+        for name, check, faults in checks:
+            for i, (label, fault) in enumerate([(f"{name} as it is",
+                                                 contextlib.nullcontext())] + faults):
+                try:
+                    with fault:
+                        check()
+                except AssertionError as e:
+                    cs.log(f"== {label}: the {name} check fails: {str(e)[:300]}")
+                    ok &= i > 0
+                else:
+                    cs.log(f"== {label}: the {name} check passes")
+                    ok &= i == 0
+                torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -823,6 +891,7 @@ def main(argv=None) -> int:
     ok &= zoo_failures(args.seed, dev)
     ok &= dp_failures(args.seed)
     ok &= quality_failures(args.seed, dev)
+    ok &= cli_failures(args.seed, dev)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

@@ -31,7 +31,7 @@ def find_model_using_name(model_name: str):
 
 
 def get_option_setter(model_name: str):
-    """The model's ``modify_commandline_options(parser)``."""
+    """The model's ``modify_commandline_options(parser, is_train=True)``."""
     return find_model_using_name(model_name).modify_commandline_options
 
 

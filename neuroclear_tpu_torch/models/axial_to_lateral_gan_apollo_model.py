@@ -59,17 +59,22 @@ D_PROBES = [("slice", "real", LAT, "D_A_lateral"), ("proj", "fake", LAT, "D_A_la
             ("slice", "real", AX2, "D_B_axial"), ("slice", "rec", AX2, "D_B_axial")]
 
 
-def modify_commandline_options(parser):
-    """Apollo's options (``AxialToLateralGANApolloModel.modify_commandline_options``)."""
-    parser.add_argument("--lambda_A", type=float, default=10.0,
-                        help="strength of the A->B->A reconstruction (cycle) term")
-    parser.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
-    parser.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1],
-                        help="relative weights of the lateral / axial-XZ / axial-YZ terms")
-    parser.add_argument("--randomize_projection_depth", action="store_true",
-                        help="sample a fresh MIP window depth every iteration")
-    parser.add_argument("--projection_depth", type=int, default=10,
-                        help="MIP window depth; the upper bound when randomized")
+def modify_commandline_options(parser, is_train: bool = True):
+    """Apollo's options (``AxialToLateralGANApolloModel.modify_commandline_options``;
+    ``is_train`` False: test_dice's, the backward generator alone)."""
+    parser.set_defaults(no_dropout=True)
+    if is_train:
+        parser.add_argument("--lambda_A", type=float, default=10.0,
+                            help="strength of the A->B->A reconstruction (cycle) term")
+        parser.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
+        parser.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1],
+                            help="relative weights of the lateral / axial-XZ / axial-YZ terms")
+        parser.add_argument("--randomize_projection_depth", action="store_true",
+                            help="sample a fresh MIP window depth every iteration")
+        parser.add_argument("--projection_depth", type=int, default=10,
+                            help="MIP window depth; the upper bound when randomized")
+        parser.add_argument("--min_projection_depth", type=int, default=2,
+                            help="lower bound of the randomized MIP window depth (at least 2)")
     parser.add_argument("--netG_B", default="deep_linear_gen",
                         help="generator of the backward (B->A) path")
     return parser

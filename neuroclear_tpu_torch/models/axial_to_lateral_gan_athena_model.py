@@ -42,13 +42,16 @@ D_PAIRS = [("D_A_xy", "target", "fake", "target"), ("D_A_yz", "target", "fake", 
            ("D_B_yz", "source", "rec", "source"), ("D_B_xz", "remain", "rec", "remain")]
 
 
-def modify_commandline_options(parser):
-    """Athena's options (``AxialToLateralGANAthenaModel.modify_commandline_options``)."""
-    parser.add_argument("--lambda_A", type=float, default=10.0,
-                        help="strength of the A->B->A reconstruction (cycle) term")
-    parser.add_argument("--pool_size", type=int, default=50,
-                        help="no effect: declared by the original model and never used")
-    parser.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
+def modify_commandline_options(parser, is_train: bool = True):
+    """Athena's options (``AxialToLateralGANAthenaModel.modify_commandline_options``;
+    ``is_train`` False: test_dice's, the planes and the backward generator)."""
+    parser.set_defaults(no_dropout=True)
+    if is_train:
+        parser.add_argument("--lambda_A", type=float, default=10.0,
+                            help="strength of the A->B->A reconstruction (cycle) term")
+        parser.add_argument("--pool_size", type=int, default=50,
+                            help="no effect: declared by the original model and never used")
+        parser.add_argument("--gan_mode", default="vanilla", help="vanilla | lsgan | wgangp")
     parser.add_argument("--conversion_plane", nargs="+", default=["yz", "xy"],
                         help="slicing planes of the conversion: <source> <target>")
     parser.add_argument("--lambda_plane", type=int, nargs="+", default=[1, 1, 1],
@@ -68,6 +71,16 @@ def plane_axes(conversion_plane) -> dict:
             "remain": PLANE_TO_AXIS[remain]}
 
 
+def print_planes(conversion_plane) -> dict:
+    """Print the source, target and remaining planes, as the JAX model does
+    when it is built; returns ``plane_axes``."""
+    axes = plane_axes(conversion_plane)
+    plane = {v: k for k, v in PLANE_TO_AXIS.items()}
+    print(f"source plane is {plane[axes['source']]}\ntarget plane is "
+          f"{plane[axes['target']]}\nremaining plane is {plane[axes['remain']]}", flush=True)
+    return axes
+
+
 class AthenaModel(BaseModel):
     """The eight nets, their f32 parameters and the two Adams, on ``device``."""
 
@@ -78,11 +91,7 @@ class AthenaModel(BaseModel):
     def __init__(self, opt, device=None, plain: bool = False):
         check_nets(opt)
         super().__init__(opt, device)
-        self.axes = plane_axes(opt.conversion_plane)
-        plane = {v: k for k, v in PLANE_TO_AXIS.items()}
-        print(f"source plane is {plane[self.axes['source']]}\ntarget plane is "
-              f"{plane[self.axes['target']]}\nremaining plane is {plane[self.axes['remain']]}",
-              flush=True)
+        self.axes = print_planes(opt.conversion_plane)
         self.nets = {
             "G_A": factory.define_G(1, 1, 64, opt.netG, opt.norm, plain=plain),
             "G_B": factory.define_G(1, 1, 64, opt.netG_B, opt.norm, plain=plain),

@@ -35,8 +35,12 @@ D_PROBES = [("slice", "real", LAT, "D_A_lateral"), ("proj", "fake", LAT, "D_A_la
             ("slice", "real", LAT, "D_A_axial"), ("proj", "fake", AX2, "D_A_axial")]
 
 
-def modify_commandline_options(parser):
-    """Dryops' options (``AxialToLateralGANDryopsModel.modify_commandline_options``)."""
+def modify_commandline_options(parser, is_train: bool = True):
+    """Dryops' options (``AxialToLateralGANDryopsModel.modify_commandline_options``;
+    ``is_train`` False: test_dice's, none)."""
+    parser.set_defaults(no_dropout=True)
+    if not is_train:
+        return parser
     parser.add_argument("--lambda_A", type=float, default=10.0,
                         help="no effect in this ablation (it has no cycle term); kept for "
                              "flag parity")
@@ -47,6 +51,8 @@ def modify_commandline_options(parser):
                         help="sample a fresh MIP window depth every iteration")
     parser.add_argument("--projection_depth", type=int, default=10,
                         help="MIP window depth; the upper bound when randomized")
+    parser.add_argument("--min_projection_depth", type=int, default=2,
+                        help="lower bound of the randomized MIP window depth (at least 2)")
     return parser
 
 

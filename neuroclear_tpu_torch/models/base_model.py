@@ -180,7 +180,9 @@ class BaseModel:
             gan_mode=opt.gan_mode, lambda_A=opt.lambda_A,
             lambda_plane=tuple(opt.lambda_plane),
             randomize_projection_depth=getattr(opt, "randomize_projection_depth", False),
-            projection_depth=getattr(opt, "projection_depth", 10), precision=opt.precision,
+            projection_depth=getattr(opt, "projection_depth", 10),
+            min_projection_depth=getattr(opt, "min_projection_depth", 2),
+            precision=opt.precision,
             remat=opt.remat)
         self.nets = {}
         self.base_lr = opt.lr

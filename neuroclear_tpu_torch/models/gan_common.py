@@ -27,6 +27,7 @@ class GanStepConfig:
     lambda_plane: tuple = (1, 1, 1)
     randomize_projection_depth: bool = False
     projection_depth: int = 10
+    min_projection_depth: int = 2
     precision: str = "float32"  # compute dtype; params and Adam stay f32
     remat: bool = False  # recompute the generators' activations in the G loss
 
@@ -76,11 +77,12 @@ def probe_all_slices(vol, axis: int, d_apply):
 
 def sample_projection_depth(cfg: GanStepConfig, generator: torch.Generator) -> int:
     """Per-step MIP depth (apollo_model.py:157-160): uniform on
-    [2, projection_depth] when randomized (2: the JAX CLI's
-    ``--min_projection_depth`` default, which the production run keeps)."""
+    [max(2, min_projection_depth), projection_depth] when randomized, as
+    ``sample_projection_depth`` of the JAX package draws it."""
     if not cfg.randomize_projection_depth:
         return cfg.projection_depth
-    return int(torch.randint(2, cfg.projection_depth + 1, (), generator=generator))
+    return int(torch.randint(max(2, cfg.min_projection_depth), cfg.projection_depth + 1, (),
+                             generator=generator))
 
 
 def g_gan(pred, cfg: GanStepConfig):

@@ -1,4 +1,4 @@
-"""TestModel: the single-generator inference model, the port of
+"""TestModel: the inference model, the port of
 ``neuroclear_tpu/models/test_model.py`` with the load side and the inference
 accessors of ``models/base_model.py`` (``--load_iter``, ``--epoch``,
 ``--model_suffix``; ``set_input``, ``test``, ``get_current_visuals``,
@@ -7,6 +7,11 @@ accessors of ``models/base_model.py`` (``--load_iter``, ``--epoch``,
 ``--netG`` with ``--norm``; a batch-norm generator uses its running
 statistics only after ``eval()`` (``--eval``), as the JAX package traces
 under ``eval_mode``: without it each batch is normalised by its own.
+
+With ``--model`` a GAN model's name it holds that model's generators, as
+the JAX model built for a test run does: ``netG`` is its G_A, and its G_B
+(``--netG_B``), where it has one, is loaded too and maps the output back
+(``rec``) in the per-cube loop, a visual no output reads.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch
 
 from .. import resolve_device
 from ..nn import factory, norms
+from . import find_model_using_name
+from .axial_to_lateral_gan_athena_model import print_planes
 from ..utils.weights import count_params, load_npz, params_from_numpy
 
 
@@ -36,34 +43,55 @@ def _to_ndhwc(x) -> np.ndarray:
 
 class TestModel:
     """``--netG`` with ``--norm`` (production: unet_deconv, instance norm),
-    loaded from a JAX-format checkpoint."""
+    loaded from a JAX-format checkpoint; for a GAN model's name, its
+    generators."""
 
     def __init__(self, opt, device=None):
         self.device = resolve_device(device)
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
-        self.visual_names = ["real", "fake"]
-        self.model_names = ["G" + opt.model_suffix]
-        self.netG = factory.define_G(1, 1, opt.ngf, opt.netG, opt.norm)
+        if opt.model == "test":
+            self.model_names = ["G" + opt.model_suffix]
+        else:
+            self.model_names = list(find_model_using_name(opt.model).G_NAMES)
+            if opt.model == "axial_to_lateral_gan_athena":
+                print_planes(opt.conversion_plane)
+        self.nets = {name: factory.define_G(1, 1, opt.ngf, opt.netG_B if name == "G_B"
+                                            else opt.netG, opt.norm)
+                     for name in self.model_names}
+        self.netG = self.nets[self.model_names[0]]
+        self.visual_names = ["real", "fake", "rec"][:1 + len(self.model_names)]
         self.image_paths = ""
+        self.loaded = []
         self._visuals = OrderedDict()
 
     def setup(self, opt) -> None:
+        """Load the checkpoint and print the generator's size (and, with
+        ``--verbose``, the generator), as ``BaseModel.setup`` does."""
         suffix = f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch
         self.load_networks(suffix)
-        print(f"[Network {self.model_names[0]}] Total number of parameters : "
-              f"{count_params(self.netG) / 1e6:.3f} M", flush=True)
+        print("---------- Networks initialized -------------")
+        for name, net in self.nets.items():
+            if opt.verbose:
+                print(net)
+            print(f"[Network {name}] Total number of parameters : "
+                  f"{count_params(net) / 1e6:.3f} M")
+        print("-----------------------------------------------", flush=True)
 
     def load_networks(self, epoch) -> None:
-        name = self.model_names[0]
-        path = os.path.join(self.save_dir, f"{epoch}_net_{name}.npz")
-        print(f"loading the model from {path}", flush=True)
-        self.netG.load_state_dict(params_from_numpy(load_npz(path), self.netG))
-        self.netG.to(self.device)
+        """``{epoch}_net_{name}.npz`` of each net; their paths are kept in
+        ``loaded``."""
+        for name, net in self.nets.items():
+            path = os.path.join(self.save_dir, f"{epoch}_net_{name}.npz")
+            print(f"loading the model from {path}", flush=True)
+            net.load_state_dict(params_from_numpy(load_npz(path), net))
+            net.to(self.device)
+            self.loaded.append(path)
 
     def eval(self) -> None:
         """Eval semantics: batch norms normalise with their running
         statistics (the instance norm has no state it changes)."""
-        norms.set_eval(self.netG)
+        for net in self.nets.values():
+            norms.set_eval(net)
 
     def set_input(self, input) -> None:
         """``input["A"]``: a host array of one or more cubes, uploaded to the
@@ -75,9 +103,12 @@ class TestModel:
     @torch.no_grad()
     def forward(self) -> None:
         """The generator on ``real`` in its dtype (float32, whatever
-        --precision says, as the JAX package's per-cube path runs)."""
+        --precision says, as the JAX package's per-cube path runs), and G_B
+        on its output where the model has one."""
         self.fake = self.netG(self.real)
         self._visuals["fake"] = self.fake
+        if "G_B" in self.nets:
+            self._visuals["rec"] = self.nets["G_B"](self.fake)
 
     def test(self) -> None:
         self.forward()

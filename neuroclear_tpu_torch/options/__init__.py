@@ -7,6 +7,7 @@ the flags the JAX CLI declares and never reads, ``--suffix``,
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 
 from ..parallel.train_parallel import is_main, torchrun_env
@@ -100,6 +101,11 @@ def device_of(opt) -> str:
         return f"cuda:{env['local_rank']}"
     raise ValueError(f"--gpu_ids {opt.gpu_ids}: under torchrun give one id per local rank "
                      f"({env['local_world']}), or none")
+
+
+def date_stamp(seconds: float) -> str:
+    """``--add_date``'s YYYYmmdd-HHMM stamp of the local time ``seconds``."""
+    return datetime.datetime.fromtimestamp(seconds).strftime("%Y%m%d-%H%M")
 
 
 def refuse_other_values(opt, ported: dict) -> None:

@@ -9,19 +9,21 @@ and dataset registries.
 
 The defaults are the JAX CLI's (``--precision float32``, ``--seed`` None:
 a fresh seed per run, drawn from ``os.urandom`` and written to
-``train_opt.txt``; ``--init_type normal``), except where the JAX default
-selects a path the port does not have (``--model``, ``--dataset_mode``,
-``--crop_size``, ``--preprocess``): there they are the production
-configuration's.  A flag whose value selects a path that is not ported is
-refused by ``check_options`` with a pointer to ROADMAP.md; flags the JAX
-CLI keeps only for parity (``--num_threads``, ``--no_dropout``, and those it
+``train_opt.txt``; ``--init_type normal``; ``--preprocess none`` and
+``--crop_size 0 0 0``, which ``train_onecube`` runs on the host chain over
+the whole volume, as JAX's does; ``--no_dropout`` set by each GAN model's
+option setter), except where the JAX default names a model or dataset that
+neither package has (``--model cycle_gan``, ``--dataset_mode braincube``):
+there they are the production configuration's.  A flag whose value selects a
+path that is not ported is refused by ``check_options`` with a pointer to
+ROADMAP.md; flags the JAX CLI keeps only for parity (``--num_threads``,
+``--no_dropout``, the tiling flags of the inference datasets, and those it
 declares and never reads, ``options.UNREAD``) are taken and change nothing.
 """
 
 from __future__ import annotations
 
 import argparse
-import datetime
 import os
 import time
 
@@ -31,8 +33,8 @@ from ..models.axial_to_lateral_gan_apollo_model import GAN_NET_D, GAN_NET_G
 from ..nn.norms import NORMS
 from ..parallel import train_parallel
 from ..utils.weights import INIT_TYPES
-from . import (ROADMAP, UNREAD_TRAIN, add_gpu_ids, add_jax_flags, apply_jax_flags, device_of,
-               refuse_other_values)
+from . import (ROADMAP, UNREAD_TRAIN, add_gpu_ids, add_jax_flags, apply_jax_flags, date_stamp,
+               device_of, refuse_other_values)
 from . import print_options as _print_options
 
 NOT_PORTED = f"is not ported yet {ROADMAP}"
@@ -40,14 +42,28 @@ NOT_PORTED = f"is not ported yet {ROADMAP}"
 # and the nets and norms with which the JAX package's GAN models run
 PORTED_VALUES = {"input_nc": (1,), "output_nc": (1,), "ngf": (64,), "ndf": (64,),
                  "netG": GAN_NET_G, "netD": GAN_NET_D, "norm": NORMS, "image_dimension": (3,)}
+# the inference datasets, whose option setters add the tiling flags: a
+# trainer refuses them (check_options), after its parser has taken their flags
+TILED_DATASETS = ("diceImage", "simulationcrop")
+
+
+def add_tiling_flags(p: argparse.ArgumentParser) -> None:
+    """``--overlap`` and ``--border_cut``, as the JAX ``diceImage`` and
+    ``simulationcrop`` datasets add them."""
+    p.add_argument("--overlap", type=int, default=0, help="overlap of the tiles")
+    p.add_argument("--border_cut", type=int, default=0,
+                   help="border cut from each tile's output")
 
 
 def build_parser(argv=None) -> argparse.ArgumentParser:
     """The trainers' parser with the options of the model that ``argv``'s
     ``--model`` names (Apollo's without it), added through the registry's
-    option setter as ``BaseOptions.gather_options`` adds them."""
+    option setter, and of its ``--dataset_mode``, as
+    ``BaseOptions.gather_options`` adds them."""
     p = base_parser()
     known, _ = p.parse_known_args(["--dataroot", "", *(argv or [])])
+    if known.dataset_mode in TILED_DATASETS:
+        add_tiling_flags(p)
     return models.get_option_setter(known.model)(p)
 
 
@@ -65,11 +81,13 @@ def base_parser() -> argparse.ArgumentParser:
                    help="prefix the experiment name with a YYYYmmdd-HHMM stamp (not with "
                         "--continue_train)")
     p.add_argument("--dataset_mode", default="singlevolume")
-    p.add_argument("--preprocess",
-                   default="random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel")
-    p.add_argument("--crop_size", type=int, nargs=3, default=[108, 108, 108],
-                   help="z y x; a 0 keeps the whole axis (train_onecube then runs the host "
-                        "chain)")
+    p.add_argument("--preprocess", default="none",
+                   help="the augmentation chain, e.g. the production run's "
+                        "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel; "
+                        "none (train_onecube then runs the host chain over the whole volume)")
+    p.add_argument("--crop_size", type=int, nargs=3, default=[0, 0, 0],
+                   help="z y x, read by randomcrop; a 0 keeps the whole axis (train_onecube "
+                        "then runs the host chain)")
     p.add_argument("--host_augment", action="store_true",
                    help="train_onecube: cut each crop with the host chain instead of the "
                         "device chain")
@@ -101,7 +119,7 @@ def base_parser() -> argparse.ArgumentParser:
                    help="std or gain of the normal, xavier and orthogonal inits")
     p.add_argument("--no_dropout", action="store_true",
                    help="no effect: these generators have no dropout; taken so that a JAX "
-                        "command line parses")
+                        "command line parses (set by the GAN models, as in JAX)")
     p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype; parameters and Adam stay float32")
     p.add_argument("--remat", action="store_true",
@@ -217,8 +235,7 @@ def parse(argv=None, dataset_modes=("singlevolume",)):
         if train_parallel.is_main():
             print(f"--seed not given: drew seed {opt.seed}", flush=True)
     if opt.add_date and not opt.continue_train:
-        stamp = train_parallel.broadcast_int(int(time.time()))
-        opt.name = datetime.datetime.fromtimestamp(stamp).strftime("%Y%m%d-%H%M") + "_" + opt.name
+        opt.name = date_stamp(train_parallel.broadcast_int(int(time.time()))) + "_" + opt.name
     apply_jax_flags(opt, refuse_btoa=True)
     return opt
 

@@ -6,11 +6,13 @@ protocol at a ladder of iterations, and selects the best one.
 
     python -m neuroclear_tpu_torch.scripts.run_quality_study [DATA_DIR] [CKPT_DIR] [LOG_DIR]
 
-(defaults ``.study/sim700``, ``.study/ckpt_sim700``, ``.study/quality``
-under the working directory).  The knobs are the JAX script's, under the
-same names and with its defaults, read from the environment: ``MAX_ITERS``
-(11000), ``EVALS`` ("3000 6000 9000"), ``NAME`` (apollo148), ``RESULTS``
-(``.study/results_sim700``), ``SEG_ITERS`` (500), ``SAVE_FREQ`` (50),
+(defaults the JAX script's ``/tmp/sim700``, ``/tmp/ckpt_sim700`` and
+``/tmp/quality``, under ``$TMPDIR`` where it is set; the study queue,
+``run_study_queue``, passes its own under ``.study/``).  The knobs are the
+JAX script's, under the same names and with its defaults, read from the
+environment: ``MAX_ITERS`` (11000), ``EVALS`` ("3000 6000 9000"), ``NAME``
+(apollo148), ``RESULTS`` (``/tmp/results_sim700``), ``SEG_ITERS`` (500),
+``SAVE_FREQ`` (50),
 ``PRINT_FREQ`` (25), ``WATCHDOG`` (300), ``SEG_TIMEOUT`` (1500 s),
 ``EXTRA_TRAIN_FLAGS`` (""), ``CROP`` (148), ``GEN_FLAGS`` (""; e.g.
 "--preset s4", appended to ``--size 700 --seed 0``), ``MODEL_FLAGS`` (the
@@ -63,13 +65,15 @@ import shlex
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PACKAGE = "neuroclear_tpu_torch"
+TMP = tempfile.gettempdir()  # /tmp unless $TMPDIR names another
 KNOBS = {"MAX_ITERS": "11000", "EVALS": "3000 6000 9000", "NAME": "apollo148",
-         "RESULTS": os.path.join(".study", "results_sim700"), "SEG_ITERS": "500",
+         "RESULTS": os.path.join(TMP, "results_sim700"), "SEG_ITERS": "500",
          "SAVE_FREQ": "50", "PRINT_FREQ": "25", "WATCHDOG": "300", "SEG_TIMEOUT": "1500",
          "EXTRA_TRAIN_FLAGS": "", "CROP": "148", "GEN_FLAGS": "",
          "MODEL_FLAGS": "--model axial_to_lateral_gan_apollo --lambda_plane 1 1 1 "
@@ -254,16 +258,20 @@ class Driver:
         return rc
 
 
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="The simulation quality study's driver.")
+    ap.add_argument("data", nargs="?", default=os.path.join(TMP, "sim700"))
+    ap.add_argument("ckpt", nargs="?", default=os.path.join(TMP, "ckpt_sim700"))
+    ap.add_argument("log", nargs="?", default=os.path.join(TMP, "quality"))
+    ap.add_argument("--inprocess", action="store_true",
+                    help="run every step in this process (no time limits)")
+    return ap
+
+
 def main(argv=None, environ=None) -> int:
     """Run the study; the exit code (0 when every step passed).  ``environ``
     (the process environment by default) holds the knobs."""
-    ap = argparse.ArgumentParser(description="The simulation quality study's driver.")
-    ap.add_argument("data", nargs="?", default=os.path.join(".study", "sim700"))
-    ap.add_argument("ckpt", nargs="?", default=os.path.join(".study", "ckpt_sim700"))
-    ap.add_argument("log", nargs="?", default=os.path.join(".study", "quality"))
-    ap.add_argument("--inprocess", action="store_true",
-                    help="run every step in this process (no time limits)")
-    a = ap.parse_args(argv)
+    a = build_parser().parse_args(argv)
     driver = Driver(a.data, a.ckpt, a.log, knobs(environ), inprocess=a.inprocess)
     try:
         return driver.study()

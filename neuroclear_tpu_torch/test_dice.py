@@ -11,7 +11,8 @@ port of the JAX package's ``test_dice.py``.
 
 It reads the first volume under ``--dataroot`` (uncompressed TIFF or
 ``.npy``), loads ``{suffix}_net_G{model_suffix}.npz`` (the JAX checkpoint
-format), runs on the card unless ``--device cpu`` is given, and writes under
+format; with ``--model`` a GAN model's name, that model's
+``{suffix}_net_G_A.npz`` and ``_G_B.npz``, and infers with G_A), runs on the card unless ``--device cpu`` is given, and writes under
 ``<results_dir>/<name>/<phase>_<epoch>[_iter<N>]/`` what the JAX CLI writes:
 the galleries ``index.html`` and ``index_wholeimg.html`` with their PNG
 thumbnails under ``images/``, ``volumes/``, ``projections/``, ``images/``
@@ -82,7 +83,8 @@ def main(argv=None) -> dict:
     """Run the CLI.  Returns {"web_dir", "fake", "real" (the post-processed
     volumes; "real" is None when the per-cube loop skipped it), "fake_streamed"
     (the path written during the harvest, or None), "seconds" (inference and
-    assembly wall time), "voxels", "metrics" (None without --dataroot_gt)}."""
+    assembly wall time), "voxels", "metrics" (None without --dataroot_gt),
+    "loaded" (the paths of the checkpoints loaded, the generator's first)}."""
     opt = parse_options(argv)
     device = opt.device
     # f32 convs in full f32, as the JAX package's HIGHEST precision
@@ -118,7 +120,7 @@ def main(argv=None) -> dict:
     return {"web_dir": web_dir, "fake": img_whole_dict["fake"],
             "real": img_whole_dict.get("real"),
             "fake_streamed": img_whole_dict.get("fake_streamed"), "seconds": dt,
-            "voxels": n_vox, "metrics": res}
+            "voxels": n_vox, "metrics": res, "loaded": model.loaded}
 
 
 def populate_webpages(opt, web_dir, webpage, img_whole_dict) -> None:

@@ -36,8 +36,9 @@ from follows the JAX trainer (it prints the same ``augmentation:`` line):
   device volume and runs the same micro-steps on them resident together;
 * the host chain (``HostVolumeDataset``, one item per iteration) with
   ``--host_augment`` or a chain the device path does not take (both
-  rotations, no ``randomcrop``, a 0 in ``--crop_size``); ``--grad_accum``
-  is refused with it, as in JAX.
+  rotations, no ``randomcrop``, a 0 in ``--crop_size``): JAX's defaults,
+  ``--preprocess none --crop_size 0 0 0``, train on the whole volume there;
+  ``--grad_accum`` is refused with it, as in JAX.
 
 The model comes from the registry (``models.create_model``):
 Apollo, Athena (``--model axial_to_lateral_gan_athena``, the JAX study's
@@ -245,7 +246,8 @@ def main(argv=None) -> dict:
     {"losses": one {name: float} per step, "step_seconds": seconds of each
     step on the device's clock (from the end of one to the end of the
     next), "checkpoints": paths written, "visuals": the snapshot paths,
-    "device", "model": the model after the last step, "total_iters"}, and
+    "device", "model": the model after the last step, "total_iters",
+    "depths": each step's MIP depth (None for Athena, which draws none)}, and
     prints each kernel's launches in the run and the step seconds; without
     it the run keeps no history and does not return.  Under a process group (torchrun) the
     model runs data-parallel: one crop per rank a step, the gradients and
@@ -273,7 +275,7 @@ def _train(opt) -> dict:
 
     # with --max_iters, each step's losses and end mark, kept without a sync
     names = model.loss_names
-    steps, marks = [], [_mark(device)]
+    steps, marks, depths = [], [_mark(device)], []
     paths, snapshots, t_data = [], [], 0.0
     prof = _profiler(opt, device) if is_main() else None
     launched = kernel_ops.launches()
@@ -292,6 +294,7 @@ def _train(opt) -> dict:
         if opt.max_iters:
             steps.append(values)
             marks.append(_mark(device))
+            depths.append(getattr(draws, "depth", None))
 
         if total_iters % opt.display_freq == 0:
             visualizer.display_current_results(model.visuals, total_iters)
@@ -345,7 +348,7 @@ def _train(opt) -> dict:
     print(f"step seconds (device clock): {json.dumps(secs)}", flush=True)
     return {"losses": losses, "step_seconds": secs, "checkpoints": paths,
             "visuals": snapshots, "device": device, "model": model, "dataset": dataset,
-            "form": form, "total_iters": total_iters}
+            "form": form, "total_iters": total_iters, "depths": depths}
 
 
 if __name__ == "__main__":

@@ -91,6 +91,8 @@ def test_trainer_fused_accum_is_the_device_volume_form(tmp_path, monkeypatch):
     np.save(tmp_path / "data" / "v.npy",
             (20000 + rng.normal(0, 3000, (40, 40, 40))).clip(0, 65535).astype(np.uint16))
     argv = ["--dataroot", str(tmp_path / "data"), "--checkpoints_dir", str(tmp_path / "ck"),
+            "--preprocess",
+            "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel",
             "--crop_size", "24", "24", "24", "--seed", "0", "--device", "cpu", "--no_html",
             "--display_id", "0", "--gan_mode", "lsgan", "--lambda_A", "5", "--init_type",
             "kaiming", "--max_iters", "2", "--grad_accum", "2"]

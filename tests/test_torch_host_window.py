@@ -143,6 +143,7 @@ def _volume_dir(tmp):
 def _train(tmp, *extra, iters=1):
     return train_onecube.main(
         ["--dataroot", _volume_dir(tmp), "--checkpoints_dir", str(tmp / "ck"), "--name", "w",
+         "--preprocess", "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel",
          "--crop_size", "24", "24", "24", "--seed", "0", "--device", "cpu", "--no_html",
          "--display_id", "0", "--gan_mode", "lsgan", "--lambda_A", "5", "--init_type", "kaiming",
          "--max_iters", str(iters), *extra])

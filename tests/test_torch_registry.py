@@ -42,11 +42,12 @@ def test_registry_refuses_what_is_not_ported(name):
 # The options each model adds (its modify_commandline_options in JAX)
 OWN = {"axial_to_lateral_gan_apollo": {"lambda_A", "gan_mode", "lambda_plane",
                                        "randomize_projection_depth", "projection_depth",
-                                       "netG_B"},
+                                       "min_projection_depth", "netG_B"},
        "axial_to_lateral_gan_athena": {"lambda_A", "pool_size", "gan_mode", "conversion_plane",
                                        "lambda_plane", "netG_B"},
        "axial_to_lateral_gan_dryops": {"lambda_A", "gan_mode", "lambda_plane",
-                                       "randomize_projection_depth", "projection_depth"}}
+                                       "randomize_projection_depth", "projection_depth",
+                                       "min_projection_depth"}}
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -58,9 +59,11 @@ def test_each_model_adds_its_own_options(name):
 
 
 def test_options_of_another_model_are_rejected():
-    """Athena has no MIP probe: its parser takes no --projection_depth, as
-    the JAX CLI's does not; Dryops no --conversion_plane."""
+    """Athena has no MIP probe: its parser takes no --projection_depth or
+    --min_projection_depth, as the JAX CLI's does not; Dryops no
+    --conversion_plane."""
     for name, flag in (("axial_to_lateral_gan_athena", "--projection_depth"),
+                       ("axial_to_lateral_gan_athena", "--min_projection_depth"),
                        ("axial_to_lateral_gan_dryops", "--conversion_plane")):
         argv = ["--dataroot", "x", "--model", name, flag, "4"]
         with pytest.raises(SystemExit):
@@ -193,7 +196,9 @@ def test_train_onecube_runs_each_model_with_accum_and_remat(tmp_path, model, fla
             res = train_onecube.main([
                 "--dataroot", str(tmp_path / "data"), "--checkpoints_dir", str(tmp_path / "ck"),
                 "--name", "m", "--model", model, *flags, "--gan_mode", "lsgan", "--lambda_A",
-                "5", "--crop_size", "24", "24", "24", "--precision", "bfloat16", "--remat",
+                "5", "--preprocess",
+                "random3Drotate_randomcrop_randomflip_addColorChannel_addBatchChannel",
+                "--crop_size", "24", "24", "24", "--precision", "bfloat16", "--remat",
                 "--grad_accum", "2", "--max_iters", "2", "--save_by_iter", "--seed", "0",
                 "--device", "cpu", "--init_type", "kaiming"])
     finally:

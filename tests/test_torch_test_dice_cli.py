@@ -287,6 +287,55 @@ def test_port_cli_parses_the_jax_flags(tmp_path, flags, device):
     assert dump[flags[0][2:]] == (flags[1] if len(flags) > 1 else "True")
 
 
+@pytest.fixture(scope="module")
+def gan_checkpoint(checkpoint):
+    """The module's G_A with a JAX-initialised DeepLinearGenerator G_B
+    beside it, as a GAN model's test run loads them."""
+    from neuroclear_tpu.nn import factory as jax_factory
+
+    params = jax_factory.define_G(1, 1, 64, "deep_linear_gen", "instance", dimension=3).init(
+        jax.random.PRNGKey(4), "kaiming", 0.02)
+    np.savez(os.path.join(checkpoint, "exp", "iter_5_net_G_B.npz"), **flatten_params(params))
+    return checkpoint
+
+
+@pytest.mark.parametrize("model, extra", [
+    ("axial_to_lateral_gan_apollo", []), ("axial_to_lateral_gan_athena",
+                                          ["--conversion_plane", "yz", "xy"]),
+    ("axial_to_lateral_gan_dryops", []), ("axial_to_lateral_gan_apollo", ["--legacy_pipeline"])])
+def test_gan_model_names_match_jax_cli(tmp_path, monkeypatch, gan_checkpoint, model, extra):
+    """``--model`` a GAN model's name, as JAX's ``test_dice.py`` runs it: no
+    ``--model_suffix``; the model's G_A infers and its G_B, where it has
+    one, is loaded too.  The output within GEN_LSB of the JAX CLI's, and
+    bit for bit the port's own ``--model test --model_suffix _A`` run; the
+    options both CLIs dump equal."""
+    _volumes("uint16", tmp_path)
+    argv = [a for a in _args(tmp_path, gan_checkpoint, None, "uint16", False, extra)
+            if a not in ("--model_suffix", "_A")]
+    argv[argv.index("--results_dir") + 1] = str(tmp_path / "jax")
+    _run_jax_cli([*argv, "--model", model], monkeypatch)
+    argv[argv.index("--results_dir") + 1] = str(tmp_path / "port")
+    res = port_cli.main([*argv, "--model", model, "--device", "cpu"])
+    argv[argv.index("--results_dir") + 1] = str(tmp_path / "test")
+    ref = port_cli.main([a for a in argv if a not in ("--conversion_plane", "yz", "xy")]
+                        + ["--model_suffix", "_A", "--device", "cpu"])
+    names = ["G_A"] if model.endswith("dryops") else ["G_A", "G_B"]
+    assert res["loaded"] == [os.path.join(gan_checkpoint, "exp", f"iter_5_net_{n}.npz")
+                             for n in names]
+    assert np.array_equal(res["fake"], ref["fake"])
+    web = os.path.join("exp", "test_latest_iter5")
+    out = _read_outputs(str(tmp_path / "jax" / web))[
+        os.path.join("volumes", "output_volume_xy-view_iter-5.tif")]
+    d = np.abs(res["fake"].astype(np.int64) - out.astype(np.int64))
+    assert d.max() <= GEN_LSB, d.max()
+    jax_opts, port_opts = (_options_dump(tmp_path / side / "exp" / "test_opt.txt")
+                           for side in ("jax", "port"))
+    common = (set(jax_opts) & set(port_opts)) - {"results_dir"}
+    assert {"model", "no_dropout"} | ({"netG_B"} if "G_B" in names else set()) <= common
+    assert "model_suffix" not in port_opts
+    assert {k: port_opts[k] for k in common} == {k: jax_opts[k] for k in common}
+
+
 TRAINED_G_A = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "study_state", "apollo148s4", "iter_11000_net_G_A.npz")
 
