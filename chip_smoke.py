@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (neuroclear_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--profile] [--quality700]
+    python3 chip_smoke.py --trajectory [--trajectory-iters N] [--trajectory-log DIR]
 
 Phases, each printed with its name, seconds and result:
   1. environment: torch/CUDA versions and the card (exits nonzero without one);
@@ -176,7 +177,10 @@ Phases, each printed with its name, seconds and result:
      single-process ``--grad_accum 2`` step from the same seed, crops and
      draws (bitwise, else within a rerun's distance); ``--norm batch`` at
      108^3 in f32, two steps, against the single-process batched step on
-     both crops, with the refreshed running statistics; after every step
+     both crops, against it with each conv on one crop at a time (the
+     ranks' call shapes) and against it with those convs and the
+     statistics summed in the ranks' order, with the refreshed running
+     statistics, and the same in float64; after every step
      each parameter, buffer and Adam tensor bitwise equal on both ranks
      (checksums all-reduced as (c, -c) maxima); each rank's launches exact;
      the slice's tile pipeline sharded over the ranks (``n_devices=2``,
@@ -194,10 +198,16 @@ Phases, each printed with its name, seconds and result:
 JAX study's eval of its iteration 11000 in the port (the 700^3 s4 volumes
 regenerated, ``test_dice`` in bf16 and f32; the input row held to
 docs/QUALITY.md's 21.49 / 0.459, the output rows printed beside its).
+``python3 chip_smoke.py --trajectory`` runs instead, after the build, the
+JAX study's s4 run trained from scratch by the port (``run_trajectory``:
+the 700^3 s4 volumes, the driver in process from no bank, 6,000 iterations
+in segments of 500 by default, evals at 3,000 and 6,000 and the final one,
+each beside docs/QUALITY.md's row; 35 minutes to 9,000 on an H100).
 Then a ``{"kernels": [...]}`` line (the forward norm's two rows also carry
 the 108^3 step's sums as ``step_*`` and one f32 cube's as ``legacy_*``), the nvidia-smi name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits nonzero before that line.  The whole run has a 900 s budget.
+exits nonzero before that line.  The whole run has a 900 s budget
+(``--trajectory``: 600 s and 0.45 s an iteration).
 """
 
 from __future__ import annotations
@@ -205,13 +215,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import faulthandler
+import functools
 import glob
+import hashlib
 import io
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -227,6 +241,7 @@ from neuroclear_tpu_torch.data import find_dataset_using_name, warp
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
 from neuroclear_tpu_torch.models import create_model
+from neuroclear_tpu_torch.models import gan_common as gc
 from neuroclear_tpu_torch.models.base_model import atomic_savez
 from neuroclear_tpu_torch.models.axial_to_lateral_gan_apollo_model import (
     D_NAMES, G_NAMES, LOSS_NAMES, MODEL_NAMES, ApolloModel)
@@ -682,16 +697,24 @@ TRANSPOSE_REL = 1e-5
 # first reading on an H100 at seed 0, where the prediction (1e-5 per net)
 # held for the losses (1.8e-6) and the refresh (3.8e-8) but not for the
 # gradients: G_B and the discriminators 8.2e-5 to 1.05e-3 (D_B_lateral), G_A
-# 5.5e-3, against 1.5e-6 and 8.5e-4 on the CPU (the ranks' convs run at
-# batch one, the reference's at batch two; not isolated further).  Limits at
-# about five and four times those; per-rank statistics move G_B alone by 3e-2
-# and the rest by 0.5-1.2 (CPU).
+# 5.5e-3, against 1.5e-6 and 8.5e-4 on the CPU.  Limits at about five and
+# four times those; per-rank statistics move G_B alone by 3e-2 and the rest
+# by 0.5-1.2 (CPU).  That gap is f32 rounding: in float64 the ranks lie
+# within 4.5e-11 of the batched step, and in f32 within 2.9e-6 (G_A; the
+# rest 1.5e-7 to 3e-7) of the one-process step that sums each pass of the
+# statistics over one crop at a time and then adds the two sums, as the
+# ranks do (per_crop_sums, with the ranks' conv shapes, per_sample_convs,
+# which alone move nothing on the card).  Batch norm's backward subtracts
+# the means of nearly equal terms, which makes the last bits of those sums
+# visible.  DP_BN_RANKS_REL holds the ranks to that reference, DP_BN_F64_REL
+# the float64 step to both (an H100 at seed 0, 700 W).
 DP_ITERS, DP_WORLD, DP_TIMEOUT_S = 4, 2, 400
-DP_TASKS = ("apollo", "batchnorm", "athena", "dice")
+DP_TASKS = ("apollo", "batchnorm", "batchnorm64", "athena", "dice")
 DP_BN_ARGS = [*BATCHNORM_ARGS, "--precision", "float32"]
 DP_BN_ITERS, DP_ATHENA_ITERS = 2, 2
 DP_BN_LOSS_REL, DP_BN_REFRESH_REL = 1e-5, 1e-5
 DP_BN_GRAD_REL, DP_BN_G_A_REL = 5e-3, 2e-2
+DP_BN_RANKS_REL, DP_BN_F64_REL = 1e-5, 1e-9
 DP_LSB = 1
 # --norm batch in f32: no instance norm, and the W-pair conv's gate is
 # bf16-only, so no hand kernel launches
@@ -708,8 +731,8 @@ class Phase:
     """Prints the phase's name, then its seconds and result; a failure
     propagates with its traceback."""
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, budget_s: float = BUDGET_S):
+        self.name, self.budget_s = name, budget_s
         self.result = "ok"
 
     def __enter__(self):
@@ -722,8 +745,9 @@ class Phase:
         if exc_type is None:
             log(f"[{self.name}] {dt:.1f} s: {self.result}")
             spent = time.monotonic() - T_START
-            if spent > BUDGET_S:
-                raise RuntimeError(f"over the {BUDGET_S} s budget after {self.name}: {spent:.0f} s")
+            if spent > self.budget_s:
+                raise RuntimeError(f"over the {self.budget_s} s budget after {self.name}: "
+                                   f"{spent:.0f} s")
         else:
             log(f"[{self.name}] {dt:.1f} s: FAILED ({exc_type.__name__}: {exc})")
         return False
@@ -2434,10 +2458,16 @@ def run_quality(seed: int, dev, tmp: str) -> dict:
             "best": chk["best"], "per_eval": chk["per_eval"], **three}
 
 
-# docs/QUALITY.md's round-4 eval of iteration 11000 of the s4 study (the
-# 700^3 --preset s4 --seed 0 volume, the full protocol): (PSNR, SSIM) of the
-# input and of the output against the ground truth, to the table's digits
-QUALITY_700 = {"input": (21.49, 0.459), "output": (19.86, 0.446)}
+# docs/QUALITY.md round 4's trajectory of the JAX s4 study (the 700^3
+# --preset s4 --seed 0 volume, the full protocol): per iteration the
+# protocol (PSNR, SSIM) of the input and of the output against the ground
+# truth, to the table's digits, and the output's affine-optimal PSNR,
+# background RMS and axial/lateral gradient ratio (the input's 0.462)
+QUALITY_S4 = {3000: ((21.62, 0.524), (20.75, 0.220), 32.02, 0.034, 0.488),
+              6000: ((21.49, 0.459), (21.79, 0.628), 32.27, 0.049, 0.427),
+              9000: ((21.49, 0.459), (20.74, 0.593), 31.33, 0.060, 0.380),
+              11000: ((21.49, 0.459), (19.86, 0.446), 30.94, 0.068, 0.372)}
+QUALITY_700 = dict(zip(("input", "output"), QUALITY_S4[STUDY_LOAD_ITER][:2]))
 
 
 def run_study_status(tmp: str) -> list:
@@ -2473,16 +2503,46 @@ def run_study_status(tmp: str) -> list:
     return rows
 
 
+def input_row_parts(data: str, argv: list, dev) -> dict:
+    """The eval's input row taken apart: ``test_dice``'s stretch of the input
+    (the percentiles, their dtype, the stretched volume's sha256) on this
+    host, the mean and standard deviation numpy gives the stretched input
+    and the ground truth, then the protocol metrics of it against the
+    ground truth on the CPU and on ``dev``.  ``tests/jax_input_row.py``
+    prints the same parts of JAX's path and the port's on another host."""
+    opt = test_options.parse([*argv, "--device", "cpu"])
+    ds = find_dataset_using_name(opt.dataset_mode)(opt)
+    real = np.asarray(ds.volume, np.float32) * dtype_inv_scale(ds.volume.dtype)
+    p = np.percentile(real, tuple(opt.sat_level))
+    real = test_dice._postprocess(real, opt, ds.size_original())
+    gt = tiffio.imread(os.path.join(data, "gt", "bead_gt.tif"))
+    # np.mean and np.std of the input and the ground truth, to the last bit:
+    # the protocol's first standardize reads them
+    out = {"numpy": np.__version__, "percentiles": [float(v) for v in p],
+           "percentile_dtype": str(p.dtype),
+           "sha256": hashlib.sha256(real.tobytes()).hexdigest(),
+           "mean_std": [float(f(v)) for v in (real, gt) for f in (np.mean, np.std)]}
+    for where in ("cpu", dev):
+        m = device_metrics.protocol_metrics(real, real, gt, device=torch.device(where))
+        out[str(where)] = (m["psnr_input"], m["ssim_input"])
+    return out
+
+
 def run_quality700(tmp: str) -> dict:
     """``--quality700``: the JAX study's eval of its iteration 11000 redone
     in the port: the 700^3 s4 volumes regenerated, ``test_dice`` with the
     study's eval flags on ``study_state/apollo148s4`` in bf16 and in f32;
     the input row (which no net touches) must print docs/QUALITY.md's to its
-    digits; the output rows are printed beside its."""
+    digits, and is taken apart (``input_row_parts``); the output rows are
+    printed beside its."""
     data = os.path.join(tmp, "sim700")
     gen_s, digest, vol = generate_quality_volumes(data, size=700)
     log(f"  generated 700^3 --preset s4 --seed 0 in {gen_s:.1f} s on the host: sha256 {digest}")
-    rows, bad = {}, []
+    k = run_quality_study.knobs({"NAME": QUALITY_NAME, "RESULTS": os.path.join(tmp, "parts")})
+    parts = input_row_parts(data, run_quality_study.eval_flags(
+        k, data, os.path.dirname(STUDY_STATE), STUDY_LOAD_ITER), torch.device("cuda", 0))
+    log(f"  the input row taken apart: {json.dumps(parts)}")
+    rows, bad = {"input_parts": parts}, []
     for precision in ("bfloat16", "float32"):
         k = run_quality_study.knobs({"NAME": QUALITY_NAME, "RESULTS": os.path.join(tmp, precision),
                                      "EVAL_FLAGS": f"--precision {precision}"})
@@ -2511,6 +2571,215 @@ def run_quality700(tmp: str) -> dict:
     if bad:
         raise AssertionError(f"the 700^3 eval: {bad}")
     return rows
+
+
+# --trajectory: the JAX study's s4 run (scripts/run_quality_study.sh with
+# the s4 recipe, docs/QUALITY.md "Round 4") trained from scratch by the
+# port through its driver: the 700^3 --preset s4 --seed 0 volumes, a BANK
+# that does not exist (so the nets start from --init_type kaiming --seed 0),
+# segments of 500 iterations each resumed from the newest checkpoint set, a
+# set every 250 iterations (the JAX script's 50 would keep 120 sets of ~220
+# MB by 6000), an eval at every 3000 and the driver's final eval, each with
+# its diagnosis, and the selection.  The training flags are the driver's.
+# The draws come from torch.Generators, not JAX keys: the run is another
+# sample of the same process, so its quality rows are printed beside the JAX
+# run's, not gated.
+TRAJECTORY_NAME, TRAJECTORY_ITERS, TRAJECTORY_EVERY = "apollo148s4_port", 6000, 3000
+TRAJECTORY_KNOBS = {"NAME": TRAJECTORY_NAME, "SEG_ITERS": "500", "SAVE_FREQ": "250",
+                    "PRINT_FREQ": "25", "GEN_FLAGS": "--preset s4"}
+TRAJECTORY_S_PER_ITER = 0.45  # the hang guard's allowance, over 600 s
+_EVAL_BLOCK = re.compile(r"Network (Input|Output) vs\. Groundtruth\s*\n\(psnr: ([-0-9.eE+]+)\)"
+                         r"\s*\n\(ssim: ([-0-9.eE+]+)\)")
+_DIAG_ROW = re.compile(r"(input|output): protocolPSNR\s+([-0-9.]+)\s+affine-optPSNR\s+"
+                       r"([-0-9.]+)\s+corr ([-0-9.]+)\s+axial/lateral-grad ([-0-9.]+)\s+"
+                       r"bgRMS ([-0-9.]+)")
+
+
+class NonFinite(BaseException):
+    """A non-finite loss: raised past the driver's own handling, which
+    would resume from the last checkpoint set."""
+
+
+class TrajectoryDriver(run_quality_study.Driver):
+    """The study's driver (in process) keeping, for each step it runs, its
+    seconds and launches, and for each training segment each step's losses
+    and device seconds from the trainer's return, printed and written to
+    ``trajectory.json`` in the log directory with ``summary``; a non-finite
+    loss, or a segment whose launches on the card are not its steps'
+    ``REMAT_STEP_LAUNCHES``, ends the study."""
+
+    def __init__(self, data: str, ckpt: str, log_dir: str, k: dict, summary: dict):
+        super().__init__(data, ckpt, log_dir, k, inprocess=True)
+        self.summary, self.calls = summary, []
+
+    def run(self, module: str, argv: list, out: str, mode: str = "w",
+            timeout: float | None = None) -> int:
+        real, got = train_onecube.main, {}
+
+        def recording(train_argv):
+            try:
+                res = real(train_argv)
+            except SystemExit as e:
+                if e.code == 3:
+                    raise NonFinite(f"the trainer's NaN check stopped it; see {out}") from e
+                raise
+            got.update(losses=res["losses"], step_s=res["step_seconds"],
+                       total=res["total_iters"], checkpoints=len(res["checkpoints"]))
+            return 0
+
+        before = kernel_ops.launches()
+        t0 = time.perf_counter()
+        train_onecube.main = recording
+        try:
+            rc = super().run(module, argv, out, mode, timeout)
+        finally:
+            train_onecube.main = real
+        after = kernel_ops.launches()
+        call = {"module": module, "rc": rc, "seconds": time.perf_counter() - t0,
+                "launches": {k: after[k] - before[k] for k in after},
+                "iter": int(argv[argv.index("--load_iter") + 1]) if "--load_iter" in argv
+                else 0}
+        self.calls.append(call)
+        if module == "train_onecube" and got:
+            self.segment(call, got)
+        return rc
+
+    def segment(self, call: dict, got: dict) -> None:
+        losses = got["losses"]
+        bad = [(i, row) for i, row in enumerate(losses)
+               if not all(math.isfinite(v) for v in row.values())]
+        if bad:
+            raise NonFinite(f"non-finite losses in the segment from {call['iter']}: {bad[:3]}")
+        n = len(losses)
+        expected = {k: n * REMAT_STEP_LAUNCHES[k] for k in kernel_ops.KERNELS}
+        if torch.cuda.is_available() and call["launches"] != expected:
+            raise AssertionError(f"segment from {call['iter']}: launches {call['launches']} "
+                                 f"!= {expected}")
+        seg = {"from": call["iter"], "to": got["total"], "steps": n, "seconds": call["seconds"],
+               "step_ms": 1e3 * float(np.median(got["step_s"])),
+               "step_ms_range": [1e3 * min(got["step_s"]), 1e3 * max(got["step_s"])],
+               "loss_medians": {k: float(np.median([row[k] for row in losses]))
+                                for k in losses[0]},
+               "launches": call["launches"], "checkpoints": got["checkpoints"]}
+        segments = self.summary.setdefault("segments", [])
+        segments.append(seg)
+        log(f"  segment {len(segments)}, iterations {seg['from']}-{seg['to']}: {n} steps, step "
+            f"median {seg['step_ms']:.1f} ms ({seg['step_ms_range'][0]:.1f}-"
+            f"{seg['step_ms_range'][1]:.1f}), {seg['seconds']:.1f} s; loss medians "
+            + ", ".join(f"{k} {v:.4g}" for k, v in seg["loss_medians"].items()))
+        with open(os.path.join(self.log_dir, "trajectory.json"), "w") as f:
+            json.dump(self.summary, f, indent=1)
+
+
+def eval_rows(path: str) -> dict:
+    """{"input": (psnr, ssim), "output": (psnr, ssim)} of an eval log."""
+    return {m.group(1).lower(): (float(m.group(2)), float(m.group(3)))
+            for m in _EVAL_BLOCK.finditer(open(path).read())}
+
+
+def diag_rows(path: str) -> dict:
+    """{"input"/"output": {"affine_psnr", "corr", "grad_ratio", "bg_rms"}}
+    of a ``diagnose_quality`` log."""
+    return {m.group(1): {"affine_psnr": float(m.group(3)), "corr": float(m.group(4)),
+                         "grad_ratio": float(m.group(5)), "bg_rms": float(m.group(6))}
+            for m in _DIAG_ROW.finditer(open(path).read())}
+
+
+def trajectory_evals(driver: TrajectoryDriver) -> dict:
+    """Each eval the driver ran, by iteration: its rows, its diagnosis, the
+    seconds of the eval and of the diagnosis, its inference seconds and
+    launches."""
+    out = {}
+    for call in driver.calls:
+        it = call["iter"]
+        if call["module"] == "test_dice":
+            ev = os.path.join(driver.log_dir, f"eval_{it}.log")
+            secs = re.search(r"Inference\+assembly: ([0-9.]+)s", open(ev).read())
+            out[it] = {**eval_rows(ev), "eval_s": call["seconds"],
+                       "inference_s": float(secs.group(1)) if secs else None,
+                       "launches": call["launches"]}
+        elif call["module"] == "scripts.diagnose_quality":
+            last = max(out)
+            out[last].update(diag=diag_rows(os.path.join(driver.log_dir, f"diag_{last}.log")),
+                             diag_s=call["seconds"])
+    return out
+
+
+def print_trajectory_evals(evals: dict) -> None:
+    for it, e in evals.items():
+        d = e.get("diag", {}).get("output", {})
+        log(f"  eval {it}: input psnr {e['input'][0]:.4f} ssim {e['input'][1]:.4f}, output "
+            f"psnr {e['output'][0]:.4f} ssim {e['output'][1]:.4f}; diagnosis: affine-optimal "
+            f"psnr {d.get('affine_psnr')}, background rms {d.get('bg_rms')}, axial/lateral "
+            f"gradient ratio {d.get('grad_ratio')} (input {e.get('diag', {}).get('input')}); "
+            f"eval {e['eval_s']:.1f} s (inference and assembly {e['inference_s']} s), "
+            f"diagnosis {e.get('diag_s', 0.0):.1f} s")
+        ref = QUALITY_S4.get(it)
+        if ref:
+            log(f"    docs/QUALITY.md at {it}: input psnr {ref[0][0]} ssim {ref[0][1]}, output "
+                f"psnr {ref[1][0]} ssim {ref[1][1]}; affine-optimal psnr {ref[2]}, background "
+                f"rms {ref[3]}, axial/lateral gradient ratio {ref[4]}")
+
+
+def run_trajectory(work: str, logd: str, iters: int = TRAJECTORY_ITERS,
+                   every: int = TRAJECTORY_EVERY, size: int = 700,
+                   knobs: dict | None = None) -> dict:
+    """``--trajectory``: the s4 study from scratch through the port's driver
+    (``TRAJECTORY_KNOBS``' comment) to ``iters``, evaluated at every
+    ``every``; data, checkpoints and output volumes under ``work``, the
+    driver's logs and ``trajectory.json`` (rewritten after each segment)
+    under ``logd``.  ``knobs`` overrides the driver's knobs (a small run on
+    the CPU, where no launch is counted).  Raises on a non-finite loss, a
+    failed driver (a segment that adds no checkpoint, an eval without a PSNR
+    line), an eval without both protocol rows or, on the card, launches
+    that are not the steps' and evals'."""
+    data = os.path.join(work, "data")
+    os.makedirs(logd, exist_ok=True)
+    gen_s, digest, vol = generate_quality_volumes(data, size)
+    log(f"  generated {size}^3 --preset s4 --seed 0 in {gen_s:.1f} s on the host: sha256 "
+        f"{digest}; {shutil.disk_usage(work).free / 2 ** 30:.1f} GiB free where the "
+        "checkpoints go")
+    evals = list(range(every, iters + 1, every))
+    environ = {**TRAJECTORY_KNOBS, "MAX_ITERS": str(iters), "EVALS": " ".join(map(str, evals)),
+               "BANK": os.path.join(work, "no_bank"), "RESULTS": os.path.join(work, "results"),
+               **(knobs or {})}
+    summary = {"digest": digest, "gen_s": gen_s, "segments": []}
+    driver = TrajectoryDriver(data, os.path.join(work, "ckpt"), logd,
+                              run_quality_study.knobs(environ), summary)
+    kernel_ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = driver.study()
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    summary["driver_s"] = time.perf_counter() - t0
+    summary["launches"] = kernel_ops.launches()
+    summary["evals"] = trajectory_evals(driver)
+    summary["selected"] = (open(os.path.join(logd, "selected.txt")).read().strip()
+                           if os.path.exists(os.path.join(logd, "selected.txt")) else None)
+    with open(os.path.join(logd, "trajectory.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print_trajectory_evals(summary["evals"])
+    log(f"  driver {summary['driver_s']:.1f} s, exit {rc}; {summary['selected']}; launches "
+        f"{summary['launches']}")
+    bad = [] if rc == 0 else [f"the driver exited {rc}: "
+                              + open(os.path.join(logd, "driver.log")).read()[-1500:]]
+    done = sorted(summary["evals"])
+    if not set(evals) <= set(done):
+        bad.append(f"evals {done}, expected {evals} and the final one")
+    bad += [f"eval {it}: rows {sorted(k for k in e if k in ('input', 'output'))}"
+            for it, e in summary["evals"].items() if not ("input" in e and "output" in e)]
+    if torch.cuda.is_available():
+        steps = sum(s["steps"] for s in summary["segments"])
+        n_evals = sum(c["module"] == "test_dice" for c in driver.calls)
+        per_eval = eval_launches(vol.shape)
+        expected = {k: steps * REMAT_STEP_LAUNCHES[k] + n_evals * per_eval[k]
+                    for k in kernel_ops.KERNELS}
+        if summary["launches"] != expected:
+            bad.append(f"launches {summary['launches']} != {expected}")
+    if bad:
+        raise AssertionError(f"the trajectory: {bad}")
+    return summary
 
 
 def athena_model(flats: dict, dev, plain: bool = False, **overrides):
@@ -3713,10 +3982,67 @@ def dp_athena(seed: int, dev, rank: int) -> dict:
                           DP_ATHENA_ITERS, seed, ATHENA_REMAT_STEP_LAUNCHES)
 
 
-def dp_batchnorm(seed: int, dev, rank: int) -> dict:
-    """``--norm batch`` at 108^3 in f32: on rank 0 the first averaged step
-    against the single-process batched step on both crops (``torch.cat``),
-    and the running statistics after its refresh against a refresh of that
+class Float64Config(gc.GanStepConfig):
+    """The step's configuration computing in float64 (a reference run)."""
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.float64
+
+
+@contextlib.contextmanager
+def per_sample_convs():
+    """Every conv, transposed conv and linear layer run on each sample of
+    its batch alone (batch-1 calls, concatenated): a one-process step with
+    the shapes of one rank's calls."""
+    names = ("conv2d", "conv3d", "conv_transpose2d", "conv_transpose3d", "linear")
+    real = {n: getattr(F, n) for n in names}
+
+    def split(fn):
+        def call(x, *args, **kwargs):
+            if x.shape[0] == 1:
+                return fn(x, *args, **kwargs)
+            return torch.cat([fn(x[i:i + 1], *args, **kwargs) for i in range(x.shape[0])])
+        return call
+    for n in names:
+        setattr(F, n, split(real[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(F, n, real[n])
+
+
+@contextlib.contextmanager
+def per_crop_sums():
+    """Batch norm's statistics in the ranks' order of sums: each pass summed
+    over one crop at a time, then the crops' sums added (``batch_stats``
+    under data parallelism sums each rank's crop, then all-reduces)."""
+    plain = norms.batch_stats
+
+    def stats(xf: torch.Tensor, axes: tuple):
+        n = xf.numel() // xf.shape[-1]
+        each = tuple(range(xf.dim() - 1))
+        mean = sum(xf[i:i + 1].sum(dim=each) for i in range(xf.shape[0])) / n
+        var = sum(torch.square(xf[i:i + 1] - mean).sum(dim=each)
+                  for i in range(xf.shape[0])) / n
+        return mean, var
+    norms.batch_stats = stats
+    try:
+        yield
+    finally:
+        norms.batch_stats = plain
+
+
+def dp_batchnorm(seed: int, dev, rank: int, dtype=torch.float32) -> dict:
+    """``--norm batch`` at 108^3 in f32 (or the same step in float64: nets,
+    statistics and losses): on rank 0 the first averaged step against the
+    single-process step on both crops (``torch.cat``): batched; with every
+    conv on one crop at a time (``per_sample_convs``: the ranks' call
+    shapes); and with those convs and the statistics summed in the ranks'
+    order (``per_crop_sums``); the first two references against each other;
+    and
+    the running statistics after its refresh against a refresh of that
     batch from the data-parallel model's updated weights."""
     from neuroclear_tpu_torch.parallel.train_parallel import DataParallel
 
@@ -3725,25 +4051,36 @@ def dp_batchnorm(seed: int, dev, rank: int) -> dict:
     def make():
         model = ApolloModel(opt, dev)
         model.init_weights(seed, "kaiming")
+        if dtype == torch.float64:
+            for net in model.nets.values():
+                net.double()
+            model.cfg = Float64Config(**dataclasses.asdict(model.cfg))
         return model
     dataset = SingleVolumeDataset(synthetic_volume(seed, TRAIN_VOLUME), (CROP,) * 3,
                                   opt.preprocess, dev)
     model = make()
     dp = DataParallel(model)
     gen = dp_generator(seed, rank)
-    ref, checks = None, {}
+    checks = {}
     if rank == 0:
         refm = make()
         g2 = torch.Generator()
         g2.set_state(gen.get_state())
         batch = torch.cat([dataset.crop(*dataset.draws(g2)) for _ in range(2)])
         draws = refm.draw_probes((CROP,) * 3, g2)
-        with norms.local_stats():
-            losses, *_, g, d = refm.gradients(batch, draws)
-        ref = (losses, g, d)
+        refs = {}
+        for label, forms in (("batched", ()), ("split", (per_sample_convs,)),
+                             ("ranks", (per_sample_convs, per_crop_sums))):
+            with norms.local_stats(), contextlib.ExitStack() as stack:
+                for form in forms:
+                    stack.enter_context(form())
+                losses, *_, g, d = refm.gradients(batch, draws)
+            refs[label] = (losses, g, d)
+        checks["batched_vs_split"] = _compare_grads(refm, refs["split"], *refs["batched"])
 
         def after_first(model, first):
-            checks["batched"] = _compare_grads(model, first, *ref)
+            for label, ref in refs.items():
+                checks[label] = _compare_grads(model, first, *ref)
             with torch.no_grad():
                 for p, q in zip(refm.g_params + refm.d_params, model.g_params + model.d_params):
                     p.copy_(q)
@@ -3762,8 +4099,6 @@ def dp_dice(seed: int, dev, rank: int) -> dict:
     """The slice's tile pipeline sharded over the ranks (bf16, the
     kernels): launches per rank, every rank's output equal, and on rank 0
     the single-card pipeline's output against it."""
-    import hashlib
-
     from neuroclear_tpu_torch.parallel.train_parallel import world
 
     vol = synthetic_volume(seed)
@@ -3833,7 +4168,9 @@ def tile_dealing(pipe, vp: np.ndarray, world: int) -> dict:
     return res
 
 
-DP_RANK_TASKS = {"apollo": dp_apollo, "batchnorm": dp_batchnorm, "athena": dp_athena,
+DP_RANK_TASKS = {"apollo": dp_apollo, "batchnorm": dp_batchnorm,
+                 "batchnorm64": functools.partial(dp_batchnorm, dtype=torch.float64),
+                 "athena": dp_athena,
                  "dice": dp_dice}
 
 
@@ -3912,21 +4249,34 @@ def judge_dp_accum(task: str, ranks: list) -> None:
                                  f"losses {acc['loss_rel']:.3g}")
 
 
-def judge_dp_batchnorm(ranks: list) -> None:
+def judge_dp_batchnorm(ranks: list, task: str = "batchnorm") -> None:
     """No kernel (f32), the ranks together, the averaged step the batched
     step (losses within DP_BN_LOSS_REL, gradients per net within
-    DP_BN_GRAD_REL, G_A's within DP_BN_G_A_REL) and the refreshed
-    statistics within DP_BN_REFRESH_REL."""
-    _judge_launches("batchnorm", ranks)
-    _judge_together("batchnorm", ranks)
-    b = ranks[0]["batched"]
-    off = {n: v for n, v in b["per_net"].items()
-           if v > (DP_BN_G_A_REL if n == "G_A" else DP_BN_GRAD_REL)}
-    if (off or b["loss_rel"] > DP_BN_LOSS_REL
-            or ranks[0]["refresh_rel"] > DP_BN_REFRESH_REL):
-        raise AssertionError(f"batch norm over the ranks is not the batched step: per net "
-                             f"{b['per_net']}, losses {b['loss_rel']:.3g}, refresh "
-                             f"{ranks[0]['refresh_rel']:.3g}")
+    DP_BN_GRAD_REL, G_A's within DP_BN_G_A_REL), the step with the ranks'
+    conv shapes and order of sums closer (DP_BN_RANKS_REL), and the refreshed
+    statistics within DP_BN_REFRESH_REL; in float64 (``batchnorm64``) the
+    averaged step's gradients within DP_BN_F64_REL of both."""
+    _judge_launches(task, ranks)
+    _judge_together(task, ranks)
+    r0 = ranks[0]
+    if task == "batchnorm64":
+        # the losses ride the all-reduce in f32 (DataParallel.reduce)
+        limits = {"batched": (DP_BN_F64_REL, DP_BN_F64_REL, DP_BN_LOSS_REL),
+                  "ranks": (DP_BN_F64_REL, DP_BN_F64_REL, DP_BN_LOSS_REL)}
+    else:
+        limits = {"batched": (DP_BN_GRAD_REL, DP_BN_G_A_REL, DP_BN_LOSS_REL),
+                  "ranks": (DP_BN_RANKS_REL, DP_BN_RANKS_REL, DP_BN_LOSS_REL)}
+    bad = []
+    for ref, (grad, g_a, loss) in limits.items():
+        b = r0[ref]
+        off = {n: v for n, v in b["per_net"].items() if v > (g_a if n == "G_A" else grad)}
+        if off or b["loss_rel"] > loss:
+            bad.append(f"against the {ref} step: per net {b['per_net']}, losses "
+                       f"{b['loss_rel']:.3g}")
+    if r0["refresh_rel"] > DP_BN_REFRESH_REL:
+        bad.append(f"refresh {r0['refresh_rel']:.3g}")
+    if bad:
+        raise AssertionError(f"batch norm over the ranks ({task}): " + "; ".join(bad))
 
 
 def judge_dp_dice(ranks: list) -> None:
@@ -3944,8 +4294,8 @@ def judge_dp(task: str, ranks: list) -> None:
     per = [r[task] for r in ranks]
     if task in ("apollo", "athena"):
         judge_dp_accum(task, per)
-    elif task == "batchnorm":
-        judge_dp_batchnorm(per)
+    elif task in ("batchnorm", "batchnorm64"):
+        judge_dp_batchnorm(per, task)
     else:
         judge_dp_dice(per)
 
@@ -4006,10 +4356,21 @@ def main(argv=None) -> int:
     ap.add_argument("--quality700", action="store_true",
                     help="instead of the smoke: the JAX study's 700^3 eval of its iteration "
                          "11000 redone in the port (bf16 and f32)")
+    ap.add_argument("--trajectory", action="store_true",
+                    help="instead of the smoke: the JAX study's s4 run trained from scratch by "
+                         "the port and evaluated at 700^3 (about 30 minutes to 6000)")
+    ap.add_argument("--trajectory-iters", type=int, default=TRAJECTORY_ITERS,
+                    help=f"with --trajectory: the iterations (an eval at every "
+                         f"{TRAJECTORY_EVERY})")
+    ap.add_argument("--trajectory-log", default=None,
+                    help="with --trajectory: the directory of the driver's logs and "
+                         "trajectory.json (by default a temporary one)")
     args = ap.parse_args(argv)
     if args.dp_rank:
         return dp_rank_main(args)
-    faulthandler.dump_traceback_later(BUDGET_S + 60, exit=True)  # a hang ends the run
+    budget_s = (600 + TRAJECTORY_S_PER_ITER * args.trajectory_iters if args.trajectory
+                else BUDGET_S)
+    faulthandler.dump_traceback_later(budget_s + 60, exit=True)  # a hang ends the run
 
     with Phase("environment") as ph:
         if not torch.cuda.is_available():
@@ -4040,6 +4401,17 @@ def main(argv=None) -> int:
         with Phase("quality 700") as ph, tempfile.TemporaryDirectory() as tmp:
             rows = run_quality700(tmp)
             ph.result = json.dumps(rows, default=str)
+        log(smi)
+        return 0
+
+    if args.trajectory:
+        with Phase("trajectory", budget_s) as ph, tempfile.TemporaryDirectory() as tmp:
+            tj = run_trajectory(tmp, args.trajectory_log or os.path.join(tmp, "log"),
+                                iters=args.trajectory_iters)
+            ph.result = (f"{sum(s['steps'] for s in tj['segments'])} steps in "
+                         f"{len(tj['segments'])} segments, no loss non-finite, evals at "
+                         f"{sorted(tj['evals'])}, launches exact; {tj['selected']}")
+        faulthandler.cancel_dump_traceback_later()
         log(smi)
         return 0
 

@@ -111,14 +111,15 @@ class ApolloModel(BaseModel):
     def __init__(self, opt, device=None, plain: bool = False):
         check_nets(opt)
         super().__init__(opt, device)
-        # one channel in and out, 64 filters: the production configuration's
-        # (the JAX CLI's defaults)
+        # one channel in and out (the JAX CLI's defaults); --ndf sizes the
+        # discriminators, --ngf only the ResNet generators, which no GAN
+        # model runs
         self.nets = {
-            "G_A": factory.define_G(1, 1, 64, opt.netG, opt.norm, plain=plain),
-            "G_B": factory.define_G(1, 1, 64, opt.netG_B, opt.norm, plain=plain),
+            "G_A": factory.define_G(1, 1, opt.ngf, opt.netG, opt.norm, plain=plain),
+            "G_B": factory.define_G(1, 1, opt.ngf, opt.netG_B, opt.norm, plain=plain),
         }
         for name in D_NAMES:
-            self.nets[name] = factory.define_D(1, 64, opt.netD, opt.n_layers_D, opt.norm,
+            self.nets[name] = factory.define_D(1, opt.ndf, opt.netD, opt.n_layers_D, opt.norm,
                                                plain=plain)
         self._finish(opt)
 

@@ -93,11 +93,11 @@ class AthenaModel(BaseModel):
         super().__init__(opt, device)
         self.axes = print_planes(opt.conversion_plane)
         self.nets = {
-            "G_A": factory.define_G(1, 1, 64, opt.netG, opt.norm, plain=plain),
-            "G_B": factory.define_G(1, 1, 64, opt.netG_B, opt.norm, plain=plain),
+            "G_A": factory.define_G(1, 1, opt.ngf, opt.netG, opt.norm, plain=plain),
+            "G_B": factory.define_G(1, 1, opt.ngf, opt.netG_B, opt.norm, plain=plain),
         }
         for name in D_NAMES:
-            self.nets[name] = factory.define_D(1, 64, opt.netD, opt.n_layers_D, opt.norm,
+            self.nets[name] = factory.define_D(1, opt.ndf, opt.netD, opt.n_layers_D, opt.norm,
                                                plain=plain)
         self._finish(opt)
 

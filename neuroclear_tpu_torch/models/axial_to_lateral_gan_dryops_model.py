@@ -68,9 +68,9 @@ class DryopsModel(BaseModel):
     def __init__(self, opt, device=None, plain: bool = False):
         check_nets(opt, netG_B=False)
         super().__init__(opt, device)
-        self.nets = {"G_A": factory.define_G(1, 1, 64, opt.netG, opt.norm, plain=plain)}
+        self.nets = {"G_A": factory.define_G(1, 1, opt.ngf, opt.netG, opt.norm, plain=plain)}
         for name in D_NAMES:
-            self.nets[name] = factory.define_D(1, 64, opt.netD, opt.n_layers_D, opt.norm,
+            self.nets[name] = factory.define_D(1, opt.ndf, opt.netD, opt.n_layers_D, opt.norm,
                                                plain=plain)
         self._finish(opt)
 

@@ -1,16 +1,21 @@
 """GAN objectives, the port of ``neuroclear_tpu/nn/losses.py`` (without the
 gradient penalty, which no ported model uses).  Both take the prediction in
-f32, as the JAX package does."""
+f32, as the JAX package does (a float64 one in float64)."""
 
 from __future__ import annotations
 
 import torch
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or as it is in float64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def gan_loss(prediction: torch.Tensor, target_is_real: bool, gan_mode: str,
              real_label: float = 1.0, fake_label: float = 0.0) -> torch.Tensor:
     """lsgan -> MSE, vanilla -> BCE-with-logits, wgan* -> -+mean."""
-    pred = prediction.float()
+    pred = _f32(prediction)
     if gan_mode == "lsgan":
         target = real_label if target_is_real else fake_label
         return torch.mean(torch.square(pred - target))
@@ -25,4 +30,4 @@ def gan_loss(prediction: torch.Tensor, target_is_real: bool, gan_mode: str,
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(a.float() - b.float()))
+    return torch.mean(torch.abs(_f32(a) - _f32(b)))

@@ -5,7 +5,7 @@
   * 'batch': ``BatchNorm``, affine (``scale`` ~ N(1, gain), ``offset`` 0)
     with the buffers ``running_mean`` (0) and ``running_var`` (1).  It
     normalises with the batch's statistics over batch and space (biased
-    variance, in f32, cast back) unless its ``use_running`` switch is on,
+    variance, in f32 (float64 for a float64 input), cast back) unless its ``use_running`` switch is on,
     which ``set_eval`` turns on explicitly (``--eval``; the JAX package's
     ``eval_mode``), never ``nn.Module.training``.  Its forward does not touch
     the buffers: the models refresh them once per step in a pass of their
@@ -120,7 +120,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(nc))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         if self.use_running:
             mean, var = self.running_mean, self.running_var
         else:

@@ -38,10 +38,14 @@ from . import print_options as _print_options
 
 # value flags whose other values select paths the port does not have; the
 # generators are the 3D one-output nets with which the JAX test_dice.py runs
-# (the GAN models' set: the two-headed, 2D and PSF nets do not run there)
+# (the GAN models' set: the two-headed, 2D and PSF nets do not run there).
+# --ngf, --input_nc and --output_nc take any value: these nets read no --ngf
+# and no --input_nc, and the checkpoint loaded sets the output channels, so
+# JAX's test_dice.py runs them as it runs the defaults.  --image_dimension
+# builds JAX's test model (2 fails on the volume's tiles); a GAN model's name
+# does not read it.
 PORTED_VALUES = {"netG": GAN_NET_G, "dataset_mode": ("diceImage", "simulationcrop"),
-                 "image_dimension": (3,), "norm": NORMS, "ngf": (64,), "input_nc": (1,),
-                 "output_nc": (1,)}
+                 "image_dimension": (3,), "norm": NORMS}
 # JAX's test model and the GAN models, whose names JAX's test_dice.py runs
 PORTED_MODELS = {"model": ("test", *models.PORTED)}
 
@@ -150,8 +154,9 @@ def base_parser() -> argparse.ArgumentParser:
                         "multiples of 8")
     p.add_argument("--norm", default="instance")
     p.add_argument("--ngf", type=int, default=64)
-    p.add_argument("--input_nc", type=int, default=1, help="channels of the input: 1")
-    p.add_argument("--output_nc", type=int, default=1, help="channels of the output: 1")
+    p.add_argument("--input_nc", type=int, default=1, help="channels of the input (unread)")
+    p.add_argument("--output_nc", type=int, default=1,
+                   help="channels of the output (the checkpoint sets them)")
     p.add_argument("--no_dropout", action="store_true",
                    help="no effect: the generator has no dropout; taken so that a JAX "
                         "command line parses")
@@ -182,7 +187,8 @@ def base_parser() -> argparse.ArgumentParser:
 
 def check_ported(opt) -> None:
     """Raise NotImplementedError for an option whose path is not ported."""
-    refuse_other_values(opt, PORTED_VALUES)
+    refuse_other_values(opt, {k: v for k, v in PORTED_VALUES.items()
+                              if k != "image_dimension" or opt.model == "test"})
     if getattr(opt, "netG_B", GAN_NET_G[0]) not in GAN_NET_G:
         raise NotImplementedError(f"--netG_B {opt.netG_B} is not ported yet {ROADMAP}; the "
                                   f"port takes {GAN_NET_G}")

@@ -38,10 +38,12 @@ from . import (ROADMAP, UNREAD_TRAIN, add_gpu_ids, add_jax_flags, apply_jax_flag
 from . import print_options as _print_options
 
 NOT_PORTED = f"is not ported yet {ROADMAP}"
-# value flags the production nets fix (one channel in and out, 64 filters),
-# and the nets and norms with which the JAX package's GAN models run
-PORTED_VALUES = {"input_nc": (1,), "output_nc": (1,), "ngf": (64,), "ndf": (64,),
-                 "netG": GAN_NET_G, "netD": GAN_NET_D, "norm": NORMS, "image_dimension": (3,)}
+# value flags the production nets fix (one channel in and out: the JAX
+# models fail on other counts), and the nets and norms with which the JAX
+# package's GAN models run; --ndf sizes the discriminators, and --ngf and
+# --image_dimension take any value, as no JAX GAN model reads them
+PORTED_VALUES = {"input_nc": (1,), "output_nc": (1,), "netG": GAN_NET_G, "netD": GAN_NET_D,
+                 "norm": NORMS}
 # the inference datasets, whose option setters add the tiling flags: a
 # trainer refuses them (check_options), after its parser has taken their flags
 TILED_DATASETS = ("diceImage", "simulationcrop")

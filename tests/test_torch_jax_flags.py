@@ -205,8 +205,9 @@ def test_test_dice_takes_the_jax_flag(flags, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--model", "cycle_gan"], ["--model", "axial_to_lateral_gan"],
                                    ["--model", "axial_to_lateral_gan_apollo", "--netG_B",
-                                    "resnet_9blocks"], ["--input_nc", "2"],
-                                   ["--output_nc", "3"]])
+                                    "resnet_9blocks"], ["--image_dimension", "2"],
+                                   ["--model", "axial_to_lateral_gan_dryops", "--netG",
+                                    "resnet_9blocks"]])
 def test_test_dice_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         test_options.parse([*JAX_TEST, "--device", "cpu", *flags])

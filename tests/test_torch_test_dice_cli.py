@@ -257,7 +257,6 @@ def test_port_cli_runs_the_per_cube_switches(tmp_path, checkpoint, switch):
     (["--image_dimension", "2"], NotImplementedError),
     (["--dice_size", "0"], ValueError),
     (["--netG", "fixed_kernel"], NotImplementedError),
-    (["--ngf", "32"], NotImplementedError),
     (["--gpu_ids", "0,1"], NotImplementedError),
 ])
 def test_port_cli_refuses_unported_options(tmp_path, flags, error):
@@ -334,6 +333,33 @@ def test_gan_model_names_match_jax_cli(tmp_path, monkeypatch, gan_checkpoint, mo
     assert {"model", "no_dropout"} | ({"netG_B"} if "G_B" in names else set()) <= common
     assert "model_suffix" not in port_opts
     assert {k: port_opts[k] for k in common} == {k: jax_opts[k] for k in common}
+
+
+@pytest.mark.parametrize("model, flags", [
+    ("test", ["--ngf", "32"]), ("test", ["--input_nc", "2"]), ("test", ["--output_nc", "3"]),
+    ("axial_to_lateral_gan_apollo", ["--image_dimension", "2"]),
+    ("axial_to_lateral_gan_apollo", ["--ngf", "32", "--input_nc", "2", "--output_nc", "3"])])
+def test_jax_flag_values_run_as_in_jax_cli(tmp_path, monkeypatch, gan_checkpoint, model, flags):
+    """Values that JAX's ``test_dice.py`` runs as it runs the defaults
+    (``test_options.PORTED_VALUES``' comment): the output within GEN_LSB of
+    the JAX CLI's with the same flags, and bit for bit the port's own run
+    without them."""
+    _volumes("uint16", tmp_path)
+    argv = _args(tmp_path, gan_checkpoint, None, "uint16", False)
+    if model != "test":
+        argv = [a for a in argv if a not in ("--model_suffix", "_A")] + ["--model", model]
+    runs = {}
+    for side, extra in (("jax", flags), ("port", flags), ("plain", [])):
+        argv[argv.index("--results_dir") + 1] = str(tmp_path / side)
+        if side == "jax":
+            _run_jax_cli([*argv, *extra], monkeypatch)
+        else:
+            runs[side] = port_cli.main([*argv, *extra, "--device", "cpu"])["fake"]
+    assert np.array_equal(runs["port"], runs["plain"])
+    out = _read_outputs(str(tmp_path / "jax" / "exp" / "test_latest_iter5"))[
+        os.path.join("volumes", "output_volume_xy-view_iter-5.tif")]
+    d = np.abs(runs["port"].astype(np.int64) - out.astype(np.int64))
+    assert d.max() <= GEN_LSB, d.max()
 
 
 TRAINED_G_A = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -237,11 +237,56 @@ def test_jax_flags_are_accepted(flags, device):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--gpu_ids", "0,1"], ["--ngf", "32"], ["--ndf", "128"], ["--input_nc", "2"],
-    ["--output_nc", "3"], ["--netG", "resnet_6blocks"]])
+    ["--gpu_ids", "0,1"], ["--input_nc", "2"], ["--output_nc", "3"],
+    ["--netG", "resnet_6blocks"]])
 def test_jax_flag_values_not_ported_are_refused(flags):
+    """Values the JAX trainer fails on (two input or three output channels:
+    its convs get one-channel crops) or that select paths the port has not."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_options.parse(["--dataroot", "x", "--seed", "1", *flags])
+
+
+@pytest.mark.parametrize("model, flags", [
+    ("axial_to_lateral_gan_apollo", ["--ngf", "32"]),
+    ("axial_to_lateral_gan_apollo", ["--ndf", "128"]),
+    ("axial_to_lateral_gan_apollo", ["--image_dimension", "2"]),
+    ("axial_to_lateral_gan_athena", ["--ndf", "128"]),
+    ("axial_to_lateral_gan_dryops", ["--ndf", "32"])])
+def test_jax_flag_values_run_as_in_jax(tmp_path, model, flags):
+    """Values the JAX trainer runs: ``--ndf`` sizes the discriminators,
+    ``--ngf`` and ``--image_dimension`` are read by no GAN model's net.  The
+    port's model from the argv holds JAX's model's nets (every parameter's
+    name and shape), and on the JAX model's weights its first discriminator
+    gives JAX's output on a slice (rtol 1e-4)."""
+    from neuroclear_tpu import models as jax_models
+    from neuroclear_tpu.nn.core import flatten_params
+    from neuroclear_tpu.options.train_options import TrainOptions
+    from neuroclear_tpu_torch import models
+
+    argv = ["--dataroot", "x", "--seed", "1", "--model", model, "--dataset_mode",
+            "singlevolume", "--checkpoints_dir", str(tmp_path), *flags]
+    jax_opt = TrainOptions().gather_options(argv)
+    jax_opt.isTrain = True
+    jax_model = jax_models.create_model(jax_opt)
+    port = models.create_model(train_options.parse([*argv, "--device", "cpu"]), "cpu")
+    flats = {n: {k: np.asarray(v) for k, v in flatten_params(p).items()}
+             for n, p in jax_model.params.items()}
+    assert sorted(flats) == sorted(port.model_names)
+    for name, flat in flats.items():
+        net = port.nets[name]
+        ours = {}
+        for pn, p in net.named_parameters():
+            prefix, leaf = pn.rsplit(".", 1)
+            w = net.get_submodule(prefix).weight_to_jax(p) if leaf == "weight" else p
+            ours[f"{prefix}.{'w' if leaf == 'weight' else 'b'}"] = tuple(w.shape)
+        assert ours == {k: v.shape for k, v in flat.items()}, name
+    port.load_flats(flats)
+    d = port.D_NAMES[0]
+    x = np.random.default_rng(3).random((1, 32, 32, 1)).astype(np.float32)
+    ref = np.asarray(jax_model.nets[d].apply(jax_model.params[d], jnp.asarray(x)))
+    with torch.no_grad():
+        got = port.nets[d](torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
 
 
 @pytest.mark.usefixtures("one_cpu_thread")
