@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (neuroclear_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--quality700]
+    python3 chip_smoke.py [--seed N] [--profile] [--quality700] [--bench]
     python3 chip_smoke.py --trajectory [--trajectory-iters N] [--trajectory-log DIR]
 
 Phases, each printed with its name, seconds and result:
@@ -189,7 +189,18 @@ Phases, each printed with its name, seconds and result:
      LSB, both ranks' volumes equal; the gloo step medians (two processes
      sharing one card, not a multi-card speed) and the bytes all-reduced
      per step;
-  20. profile (only with --profile): a warm run of the slice's tile pipeline
+  20. bench: the port's benchmark (``python -m neuroclear_tpu_torch.bench``)
+     whole in a subprocess at ``BENCH_SIZE=300`` within its own budget: a
+     record with a value, no error or partial key, the headline and roi 204
+     on the W-pair kernel, both train legs (148^3 with
+     ``--remat``, 108^3), roi 204 and the card as its device; then its
+     inference leg here (300^3, roi 120, tile batch 4): the W-pair
+     forward and the norm's two kernels launched exactly 2 and 10 times per
+     tile batch of its two runs, the timed volume bit for bit the untimed
+     one's; then the same leg in a subprocess (``--bench-leg``) under
+     ``NEUROCLEAR_PALLAS_WCONV=0``: no W-pair launch, its volume within
+     ``BENCH_OFF_*`` of the kernel path's;
+  21. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv), three warm cubes of the per-cube
      loop (with its copies), a warm training step, a warm study step and a
      warm Athena step under torch.profiler, device time by kernel and the
@@ -198,6 +209,11 @@ Phases, each printed with its name, seconds and result:
 JAX study's eval of its iteration 11000 in the port (the 700^3 s4 volumes
 regenerated, ``test_dice`` in bf16 and f32; the input row held to
 docs/QUALITY.md's 21.49 / 0.459, the output rows printed beside its).
+``python3 chip_smoke.py --bench`` runs instead, after the build, the port's
+benchmark at its defaults (900^3: roi 120 and 204, the 148^3 and 108^3
+steps) and then ``scripts/sweep_roi120`` at 900^3 (tile batch 2, 4, 8, the
+W-pair kernel on and off), and prints the two records as ``{"bench":
+...}`` and ``{"sweep": [...]}`` lines.
 ``python3 chip_smoke.py --trajectory`` runs instead, after the build, the
 JAX study's s4 run trained from scratch by the port (``run_trajectory``:
 the 700^3 s4 volumes, the driver in process from no bank, 6,000 iterations
@@ -236,7 +252,7 @@ import torch
 import torch.nn.functional as F
 
 import neuroclear_tpu_torch.ops as kernel_ops
-from neuroclear_tpu_torch import test_dice, train, train_onecube
+from neuroclear_tpu_torch import bench, test_dice, train, train_onecube
 from neuroclear_tpu_torch.data import find_dataset_using_name, warp
 from neuroclear_tpu_torch.data.dicing import DiceGrid
 from neuroclear_tpu_torch.data.singlevolume_dataset import SingleVolumeDataset
@@ -719,6 +735,25 @@ DP_LSB = 1
 # --norm batch in f32: no instance norm, and the W-pair conv's gate is
 # bf16-only, so no hand kernel launches
 F32_BATCHNORM_STEP_LAUNCHES = {k: 0 for k in STEP_LAUNCHES}
+
+# Bench: the port's benchmark (python -m neuroclear_tpu_torch.bench) whole,
+# in a subprocess at BENCH_SIZE 300 (its default is 900: cut to fit the
+# smoke) within its own budget; then its inference leg at 300^3, roi 120,
+# B4 (the headline's tile batch) in this process, its launches
+# counted, and again in a subprocess with NEUROCLEAR_PALLAS_WCONV=0 (cuDNN
+# for the two W-pair convs).  That route against the kernel path (both
+# bf16, random weights, noise input), first reading on an H100 at seed 0:
+# equal bit for bit (max 0, mean 0 LSB; the forward convs' f32 sums come out
+# the same).  Bound: two bf16 steps for the worst voxel and 1 LSB for the
+# mean, room for another cuDNN algorithm.
+BENCH_ENV = {"BENCH_SIZE": "300", "BENCH_TOTAL_BUDGET": "420", "BENCH_LEG_TIMEOUT": "240"}
+BENCH_SIZE, BENCH_TILE_BATCH = 300, 4
+BENCH_OFF_MAX_LSB, BENCH_OFF_MEAN_LSB = 2 * 256, 1.0
+# --bench: the whole benchmark at its defaults (900^3), then the roi-120
+# sweep at 900^3 with a five-minute guard per leg: its six legs in order,
+# each with a voxel rate on the route it was asked for
+BENCH_MODE_S = 3600
+SWEEP_ENV = {"SWEEP_LEG_TIMEOUT": "300"}
 
 T_START = time.monotonic()
 
@@ -4335,6 +4370,148 @@ def run_dp(seed: int, dev, tmp: str, train_ms: float) -> dict:
             "dice": d[0]["one_card"]}
 
 
+def bench_record(env: dict, timeout: float) -> dict:
+    """``python -m neuroclear_tpu_torch.bench`` in a subprocess under
+    ``env`` (its legs' summaries pass through on stderr): its one JSON
+    line."""
+    proc = subprocess.run(bench.leg_command([]), env=bench.leg_env(env), stdout=subprocess.PIPE,
+                          text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench rc {proc.returncode}, stdout {lines[-3:]}")
+    return json.loads(lines[0])
+
+
+def check_bench_record(rec: dict) -> None:
+    """A whole record: a value, no error or partial key, the headline and
+    roi 204 on the W-pair kernel, both train legs, and the card as the
+    device."""
+    extra = rec["extra"]
+    bad = [k for k in extra if "error" in k or k == "partial"]
+    if rec["value"] is None or bad:
+        raise AssertionError(f"bench record with value {rec['value']}, keys {bad}: {rec}")
+    missing = [k for k in ("train_iters_per_sec_148", "train_iters_per_sec_108",
+                           "inference_vox_per_s_roi204") if k not in extra]
+    if missing or extra.get("wpallas_roi120") is not True or extra.get("wpallas") is not True:
+        raise AssertionError(f"bench record without {missing} or the W-pair kernel: {rec}")
+    card = f"cuda:{torch.cuda.get_device_name(0)}"
+    if extra.get("device") != card:
+        raise AssertionError(f"bench device {extra.get('device')!r}, not {card!r}")
+
+
+def bench_leg(dev) -> dict:
+    """The bench phase's inference leg in this process, its launches
+    counted from zero: the leg's record and its two volumes."""
+    kernel_ops.reset_launches()
+    res = bench.leg_inference(BENCH_SIZE, BENCH_TILE_BATCH, 120, 15, 10, device=dev,
+                              keep_volumes=True)
+    res["launches"] = kernel_ops.launches()
+    return res
+
+
+def bench_leg_main(out_dir: str) -> int:
+    """``--bench-leg DIR``: ``bench_leg`` under the caller's environment,
+    its timed volume and its record written under DIR."""
+    faulthandler.dump_traceback_later(300, exit=True)
+    res = bench_leg(torch.device("cuda", 0))
+    first, steady = res.pop("volumes")
+    np.save(os.path.join(out_dir, "volume.npy"), steady)
+    res["repeat_equal"] = bool(np.array_equal(first, steady))
+    with open(os.path.join(out_dir, "leg.json"), "w") as f:
+        json.dump(res, f)
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def run_bench(dev, tmp: str) -> dict:
+    """The bench phase (``BENCH_*``): the whole benchmark at 300^3, then its
+    inference leg here with exact launches and its timed volume bit for bit
+    the untimed one's, then with the W-pair kernel off in a subprocess:
+    no W-pair launch, the norms' as here, its volume within BENCH_OFF_* of
+    this one."""
+    t0 = time.perf_counter()
+    rec = bench_record(BENCH_ENV, float(BENCH_ENV["BENCH_TOTAL_BUDGET"]) + 60)
+    log(f"  bench record ({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}")
+    check_bench_record(rec)
+
+    batches = dice_batches((BENCH_SIZE,) * 3, tile_batch=BENCH_TILE_BATCH)
+    expected = pipeline_launches(2 * batches)  # the untimed run and the timed one
+    res = bench_leg(dev)
+    first, out = res.pop("volumes")
+    log(f"  leg here: {BENCH_SIZE}^3 B{BENCH_TILE_BATCH}, {batches} tile batches a run, first "
+        f"{res['first_s']:.3f} s, steady {res['steady_s']:.3f} s = {res['vox_per_s']:.4g} "
+        f"voxel/s; launches {res['launches']}")
+    if res["launches"] != expected:
+        raise AssertionError(f"bench leg launches {res['launches']} != {expected}")
+    if not res["wpallas"] or not np.array_equal(first, out):
+        raise AssertionError("bench leg off the W-pair kernel, or its timed volume differs "
+                             "from the untimed one")
+    if out.shape != (BENCH_SIZE,) * 3 or out.dtype != np.uint16 or out.std() == 0:
+        raise AssertionError(f"bench leg output {out.shape} {out.dtype} std {out.std()}")
+
+    off_dir = os.path.join(tmp, "wconv_off")
+    os.makedirs(off_dir)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--bench-leg", off_dir],
+                   env=bench.leg_env({"NEUROCLEAR_PALLAS_WCONV": "0"}), check=True, timeout=360)
+    with open(os.path.join(off_dir, "leg.json")) as f:
+        off = json.load(f)
+    want_off = {**expected, "wconv3x3x3": 0}
+    if off["launches"] != want_off or off["wpallas"] or not off["repeat_equal"]:
+        raise AssertionError(f"NEUROCLEAR_PALLAS_WCONV=0 leg: launches {off['launches']} "
+                             f"(want {want_off}), wpallas {off['wpallas']}, repeat equal "
+                             f"{off['repeat_equal']}")
+    d = np.abs(np.load(os.path.join(off_dir, "volume.npy")).astype(np.int64) - out)
+    log(f"  NEUROCLEAR_PALLAS_WCONV=0 (cuDNN): steady {off['steady_s']:.3f} s = "
+        f"{off['vox_per_s']:.4g} voxel/s; against the kernel path max {int(d.max())} LSB, "
+        f"mean {float(d.mean()):.3f} LSB, {float((d > 0).mean()):.4f} of voxels differ")
+    if d.max() > BENCH_OFF_MAX_LSB or d.mean() > BENCH_OFF_MEAN_LSB:
+        raise AssertionError(f"the cuDNN route off the kernel path: max {d.max()}, mean "
+                             f"{d.mean()}")
+    return {"record": rec, "launches": res["launches"], "leg": res, "off": off,
+            "off_lsb": (int(d.max()), float(d.mean()))}
+
+
+def sweep_rows(size: int = 900) -> list:
+    """``python -m neuroclear_tpu_torch.scripts.sweep_roi120 SIZE`` with its
+    output printed: one row per leg, {"B", "wpallas", and the leg's record
+    or "error"}."""
+    proc = subprocess.run([sys.executable, "-m", "neuroclear_tpu_torch.scripts.sweep_roi120",
+                           str(size)], env=bench.leg_env(SWEEP_ENV), stdout=subprocess.PIPE,
+                          text=True, timeout=6 * (float(SWEEP_ENV["SWEEP_LEG_TIMEOUT"]) + 20))
+    rows, row = [], None
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+        m = re.match(r"=== B=(\d+) wpallas=(\d)", line)
+        if m:
+            row = {"B": int(m.group(1)), "wpallas": int(m.group(2)), "error": "no JSON"}
+            rows.append(row)
+        elif row is not None and line.startswith("{"):
+            row.pop("error", None)
+            row.update(json.loads(line))
+    return rows
+
+
+def check_sweep_rows(rows: list) -> None:
+    """The sweep's six legs, B 2, 4, 8 by the W-pair kernel on and off, in
+    that order, each with a voxel rate and on the route asked for (the
+    leg's own ``wpallas`` replaces the header's)."""
+    want = [(b, w) for b in (2, 4, 8) for w in (1, 0)]
+    got = [(r["B"], int(r["wpallas"])) for r in rows]
+    bad = [r for r in rows if "error" in r or not r.get("vox_per_s")]
+    if got != want or bad:
+        raise AssertionError(f"sweep legs {got} (want {want}), failed {bad}")
+
+
+def run_bench_mode() -> tuple:
+    """``--bench``: the whole benchmark at its defaults (900^3), then the
+    sweep at 900^3: (record, rows)."""
+    rec = bench_record({}, float(os.environ.get("BENCH_TOTAL_BUDGET", "1800")) + 60)
+    log(json.dumps({"bench": rec}))
+    rows = sweep_rows()
+    log(json.dumps({"sweep": rows}))
+    return rec, rows
+
+
 def nvidia_smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -4365,11 +4542,19 @@ def main(argv=None) -> int:
     ap.add_argument("--trajectory-log", default=None,
                     help="with --trajectory: the directory of the driver's logs and "
                          "trajectory.json (by default a temporary one)")
+    ap.add_argument("--bench", action="store_true",
+                    help="instead of the smoke: the port's benchmark at its defaults (900^3), "
+                         "then the roi-120 sweep")
+    ap.add_argument("--bench-leg", default=None,
+                    help="run the bench phase's inference leg alone (under the caller's "
+                         "environment), writing to this directory")
     args = ap.parse_args(argv)
     if args.dp_rank:
         return dp_rank_main(args)
+    if args.bench_leg:
+        return bench_leg_main(args.bench_leg)
     budget_s = (600 + TRAJECTORY_S_PER_ITER * args.trajectory_iters if args.trajectory
-                else BUDGET_S)
+                else BENCH_MODE_S if args.bench else BUDGET_S)
     faulthandler.dump_traceback_later(budget_s + 60, exit=True)  # a hang ends the run
 
     with Phase("environment") as ph:
@@ -4402,6 +4587,21 @@ def main(argv=None) -> int:
             rows = run_quality700(tmp)
             ph.result = json.dumps(rows, default=str)
         log(smi)
+        return 0
+
+    if args.bench:
+        with Phase("bench 900", budget_s) as ph:
+            rec, rows = run_bench_mode()
+            check_bench_record(rec)
+            check_sweep_rows(rows)
+            ph.result = (f"{rec['value']} voxel/s at roi 120, sweep "
+                         + ", ".join(f"B{r['B']}/wp{r['wpallas']} {r.get('vox_per_s')}"
+                                     for r in rows))
+        faulthandler.cancel_dump_traceback_later()
+        log(smi)
+        log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
         return 0
 
     if args.trajectory:
@@ -4547,6 +4747,17 @@ def main(argv=None) -> int:
                      f"{dp['bytes']} bytes all-reduced per Apollo step; sharded pipeline "
                      f"against one card {dp['dice']}")
 
+    with Phase("bench") as ph, tempfile.TemporaryDirectory() as tmp:
+        bh = run_bench(dev, tmp)
+        ex = bh["record"]["extra"]
+        ph.result = (f"{BENCH_SIZE}^3 record: roi 120 {ex['inference_vox_per_s_roi120']} "
+                     f"voxel/s, roi 204 {ex['inference_vox_per_s_roi204']}, train 148^3 "
+                     f"{ex['train_iters_per_sec_148']} it/s, 108^3 "
+                     f"{ex['train_iters_per_sec_108']} it/s; the leg here "
+                     f"{bh['leg']['vox_per_s']:.4g} voxel/s, launches exact, repeat bitwise; "
+                     f"NEUROCLEAR_PALLAS_WCONV=0 {bh['off']['vox_per_s']:.4g} voxel/s, no "
+                     f"W-pair launch, {bh['off_lsb']} (max, mean LSB) from the kernel path")
+
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
@@ -4590,7 +4801,7 @@ def main(argv=None) -> int:
                    "vanilla_dice": vn["dice_launches"][name],
                    "batchnorm": bn["launches"][name],
                    "batchnorm_dice": bn["dice_launches"][name], "zoo": zo["launches"][name],
-                   "dp": dp["launches"][name]}
+                   "dp": dp["launches"][name], "bench": bh["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,

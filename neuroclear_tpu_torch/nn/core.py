@@ -4,10 +4,11 @@ Activations are channels-last (N, D, H, W, C) or (N, H, W, C) tensors, as
 in the JAX package.  Weights are stored in PyTorch's layouts: (O, I, k...)
 for a conv, (I, O, k, k, k) for a transposed conv; ``weight_from_jax``
 converts a JAX checkpoint's (k..., I, O) array and ``weight_to_jax`` converts
-back.  Convs outside the W-pair kernel's gate run through ``F.conv3d`` or
-``F.conv2d`` on a channels-last view, as the JAX package leaves them to
-XLA's convolution; inside the gate, ``wconv.WConvFn`` carries the
-gradients through the hand kernels when one is needed.  With
+back.  Convs outside the W-pair kernel's gate, or inside it with its
+switch (``wconv.ENABLED``) off, run through ``F.conv3d`` or ``F.conv2d`` on
+a channels-last view, as the JAX package leaves them to XLA's convolution;
+inside the gate, ``wconv.WConvFn`` carries the gradients through the hand
+kernels when one is needed.  With
 ``NEUROCLEAR_PALLAS_CONV=1``, bf16 convs outside that gate and inside
 ``conv3x3.supported`` go to the dense-K conv kernel, as the JAX package
 routes them to ``pallas_conv.conv3d_3x3``.  On the card a
@@ -44,11 +45,11 @@ def _channels_last(y: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Module):
     """2D or 3D conv with torch-style symmetric integer padding.  bf16 3x3x3
-    convs inside ``wconv.supported`` go to the W-pair kernel (its plain
-    version when ``plain``), through ``wconv.WConvFn`` when a gradient is
-    needed; then, in the order of the JAX package's ``Conv.apply``, those
-    inside ``conv3x3.supported`` go to the dense-K kernel the same way,
-    through ``conv3x3.Conv3x3Fn``."""
+    convs inside ``wconv.supported``, with ``wconv.ENABLED``, go to the
+    W-pair kernel (its plain version when ``plain``), through
+    ``wconv.WConvFn`` when a gradient is needed; then, in the order of the
+    JAX package's ``Conv.apply``, those inside ``conv3x3.supported`` go to
+    the dense-K kernel the same way, through ``conv3x3.Conv3x3Fn``."""
 
     def __init__(self, in_c: int, out_c: int, k: int, stride: int = 1, pad: int = 0,
                  bias: bool = True, plain: bool = False, dim: int = 3,
@@ -93,7 +94,7 @@ class Conv(nn.Module):
         w = self.spectral_weight() if self.spectral else self.weight
         if x.dtype == torch.bfloat16:
             gate = (self.in_c, self.out_c, self.k, self.stride, self.pad, self.dim)
-            if wconv.supported(x.shape, *gate):
+            if wconv.ENABLED and wconv.supported(x.shape, *gate):
                 return self._hand_conv(x, w, wconv.WConvFn, wconv.conv3d, wconv.conv3d_plain)
             if conv3x3.supported(x.shape, *gate):
                 return self._hand_conv(x, w, conv3x3.Conv3x3Fn, conv3x3.conv3d,

@@ -21,10 +21,19 @@ full-resolution 64-output-channel convs, ``double_conv1.conv1`` (64 -> 64) and
 ``ex_conv1_1.conv0`` (128 -> 64), and the backward generator's ``feat1``
 (64 -> 64), inside the JAX package's shape gate.  ``pack_weight`` and
 ``conv3d_plain`` are the conv kernel's, from ``ops/conv3x3.py``.
+
+``ENABLED`` is the route's switch: ``NEUROCLEAR_PALLAS_WCONV``, read once at
+import, pins it as in ``pallas_wconv.py`` (``"1"`` on, any other value off,
+``""`` included).  Off, ``nn.core.Conv`` leaves the conv to cuDNN (forward,
+dgrad and wgrad), as the JAX package leaves it to XLA.  Unset, it is on, in
+training too: the JAX package starts off and turns it on only for its
+forward-only entry points, because of the TPU's memory at 148^3; on the H100
+the kernels beat cuDNN, so no caller of the port turns it off.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -38,6 +47,8 @@ DW_BOX = (2, 4, 16)         # csrc/wconv_dw.cu: the voxel box (z, y, x) of a pip
 DW_TILE_ROWS = 128          # csrc/wconv_dw.cu: (tap, c) rows per block, two 64-row halves
 _TARGET_BLOCKS = 4 * 132    # dw: four waves of one resident block per H100 SM
 _DW_MIN_BOXES = 32          # dw: fewest boxes (2,048 voxels) a chunk is worth
+
+ENABLED = os.environ.get("NEUROCLEAR_PALLAS_WCONV", "1") == "1"
 
 
 class DwPlan(NamedTuple):

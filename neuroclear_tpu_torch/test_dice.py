@@ -25,7 +25,9 @@ pipeline on the device (``run_fused``, ``--precision`` bfloat16);
 ``--legacy_pipeline``, or ``--histogram_match``, which needs it, runs each
 cube through the model on its own in float32 and assembles the cubes on the
 host (``run_legacy``).  ``NEUROCLEAR_PALLAS_CONV=1`` routes the generator's
-half-resolution bf16 convs through the dense-K conv kernel.
+half-resolution bf16 convs through the dense-K conv kernel;
+``NEUROCLEAR_PALLAS_WCONV`` set to anything but ``1`` sends its two
+full-resolution 64-output convs to cuDNN instead of the W-pair kernel.
 """
 
 from __future__ import annotations

@@ -59,7 +59,7 @@ def test_port_and_chip_smoke_import_without_jax():
                  "parallel.train_parallel", "parallel.dice_infer", "utils.synthetic",
                  "scripts.generate_synthetic", "scripts.diagnose_quality",
                  "scripts.eval_saved_volumes", "scripts.select_checkpoint",
-                 "scripts.run_quality_study"):
+                 "scripts.run_quality_study", "bench", "scripts.sweep_roi120"):
         assert f"neuroclear_tpu_torch.{name}" in proc.stdout.split(), name
 
 
