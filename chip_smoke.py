@@ -200,7 +200,17 @@ Phases, each printed with its name, seconds and result:
      one's; then the same leg in a subprocess (``--bench-leg``) under
      ``NEUROCLEAR_PALLAS_WCONV=0``: no W-pair launch, its volume within
      ``BENCH_OFF_*`` of the kernel path's;
-  21. profile (only with --profile): a warm run of the slice's tile pipeline
+  21. tools: the JAX package's four measurement tools as the port's entry
+     points (``neuroclear_tpu_torch/scripts``): ``count_step_flops`` at
+     148^3 with and without remat, its steps measured on the card, the
+     count of a step on the card equal to the count from shapes on the
+     plain versions and within 1% of the JAX script's (36.3 / 26.7 TFLOP),
+     the launches of its steps exact; ``mem_study`` for Apollo at 108^3;
+     ``profile_inference`` at 300^3 (roi 120, tile batch 4), each leg
+     twice, the compute leg's rows bit for bit ``run_streaming``'s;
+     ``bench_conv_kernels 3 148`` forward and with the gradients, every row
+     timed, each hand route within its parity bound; launches exact;
+  22. profile (only with --profile): a warm run of the slice's tile pipeline
      (without and with the dense-K conv), three warm cubes of the per-cube
      loop (with its copies), a warm training step, a warm study step and a
      warm Athena step under torch.profiler, device time by kernel and the
@@ -212,8 +222,12 @@ docs/QUALITY.md's 21.49 / 0.459, the output rows printed beside its).
 ``python3 chip_smoke.py --bench`` runs instead, after the build, the port's
 benchmark at its defaults (900^3: roi 120 and 204, the 148^3 and 108^3
 steps) and then ``scripts/sweep_roi120`` at 900^3 (tile batch 2, 4, 8, the
-W-pair kernel on and off), and prints the two records as ``{"bench":
-...}`` and ``{"sweep": [...]}`` lines.
+W-pair kernel on and off), then the tools at the JAX scripts' sizes
+(``run_tools_bench``: ``profile_inference`` at 900^3 with roi 120 and 204,
+``bench_conv_kernels 10 148 224`` in both modes, ``mem_study`` for Apollo
+at 148^3 with and without remat, Athena and Dryops), and prints the three
+records as ``{"bench": ...}``, ``{"sweep": [...]}`` and ``{"tools": ...}``
+lines.
 ``python3 chip_smoke.py --trajectory`` runs instead, after the build, the
 JAX study's s4 run trained from scratch by the port (``run_trajectory``:
 the 700^3 s4 volumes, the driver in process from no bank, 6,000 iterations
@@ -276,8 +290,10 @@ from neuroclear_tpu_torch.ops.augment import crop_draws, window_plan
 from neuroclear_tpu_torch.options import date_stamp, test_options, train_options
 from neuroclear_tpu_torch.parallel import metrics as device_metrics
 from neuroclear_tpu_torch.parallel.dice_infer import DiceInferencePipeline
-from neuroclear_tpu_torch.scripts import (generate_synthetic, run_quality_study,
-                                          run_study_queue, select_checkpoint, study_status)
+from neuroclear_tpu_torch.scripts import (bench_conv_kernels, count_step_flops,
+                                          generate_synthetic, mem_study, profile_inference,
+                                          run_quality_study, run_study_queue,
+                                          select_checkpoint, study_status)
 from neuroclear_tpu_torch.utils import png, synthetic, tiffio
 from neuroclear_tpu_torch.utils.imageops import dtype_inv_scale, pad_for_dicing
 from neuroclear_tpu_torch.utils.weights import init_flat, load_npz, params_from_numpy
@@ -754,6 +770,32 @@ BENCH_OFF_MAX_LSB, BENCH_OFF_MEAN_LSB = 2 * 256, 1.0
 # each with a voxel rate on the route it was asked for
 BENCH_MODE_S = 3600
 SWEEP_ENV = {"SWEEP_LEG_TIMEOUT": "300"}
+# The tools phase: the JAX package's four measurement tools as the port's
+# entry points (neuroclear_tpu_torch/scripts), each run here with its
+# launches counted.  count_step_flops at 148^3 with remat and without, the
+# steps measured: the count of a step on the card (the hand kernels count
+# themselves) equal to the count from shapes on the plain versions, and
+# within 1% of the JAX script's count of its own step, kept as the two
+# decimals it printed (docs/PERFORMANCE.md:480-487: 36.3 TFLOP with remat,
+# 26.7 without); mem_study for Apollo at 108^3; profile_inference at 300^3,
+# roi 120, tile batch 4, its compute leg's rows bit for bit run_streaming's;
+# bench_conv_kernels at 148^3, three reps, forward and with the gradients,
+# every row timed and every hand route within its parity bound.
+TOOLS_CROP = 148
+JAX_STEP_TFLOP = {True: 36.3, False: 26.7}
+TOOLS_FLOP_REL = 0.01
+TOOLS_MEM_ARGV = ["--crop", "108"]
+TOOLS_PROFILE = (300, 120, 15, 10, 4)  # size, roi, overlap, border, tile batch
+TOOLS_CONV_ARGV = ["3", "148"]
+# --bench adds them at the sizes of the JAX scripts: profile_inference at
+# 900^3 (roi 120 at tile batch 4, the bench's headline, and roi 204 at 1),
+# the conv bench over 148^3 and 224^3 with ten reps in both modes, and
+# mem_study for Apollo at 148^3 with remat (its largest blocks) and
+# without, and for Athena and Dryops at 148^3
+BENCH_PROFILES = [(900, 120, 15, 10, 4), (900, 204, 15, 10, 1)]
+BENCH_CONV_ARGV = ["10", "148", "224"]
+BENCH_MEM_ARGVS = [["--hlo"], ["--no-remat"], ["--model", "axial_to_lateral_gan_athena"],
+                   ["--model", "axial_to_lateral_gan_dryops"]]
 
 T_START = time.monotonic()
 
@@ -4502,14 +4544,143 @@ def check_sweep_rows(rows: list) -> None:
         raise AssertionError(f"sweep legs {got} (want {want}), failed {bad}")
 
 
-def run_bench_mode() -> tuple:
+def _zero_launches() -> dict:
+    return {name: 0 for name in kernel_ops.KERNELS}
+
+
+def _add_launches(tot: dict, more: dict) -> None:
+    for name, n in more.items():
+        tot[name] += n
+
+
+def tools_count(remat: bool) -> dict:
+    """``count_step_flops --crop 148`` (``--no-remat`` without remat) on
+    the card, its steps measured: the launches of its steps exact, its
+    count equal to the count from shapes and within TOOLS_FLOP_REL of
+    JAX's."""
+    kernel_ops.reset_launches()
+    res = count_step_flops.main(["--crop", str(TOOLS_CROP)] + ([] if remat else ["--no-remat"]))
+    steps = count_step_flops.WARM + count_step_flops.STEPS
+    table = REMAT_STEP_LAUNCHES if remat else STEP_LAUNCHES
+    res["launches"] = kernel_ops.launches()
+    want = {name: n * steps for name, n in table.items()}
+    shapes = count_step_flops.count_from_shapes(TOOLS_CROP, remat).total
+    rel = abs(res["flops"] / 1e12 - JAX_STEP_TFLOP[remat]) / JAX_STEP_TFLOP[remat]
+    log(f"  count on the card {res['flops']} FLOPs {res['by_kind']}, from shapes {shapes}, "
+        f"{rel:.2e} from JAX's {JAX_STEP_TFLOP[remat]} TFLOP; steps (s) "
+        f"{[round(t, 6) for t in res['step_s']]}")
+    if res["launches"] != want:
+        raise AssertionError(f"count_step_flops launches {res['launches']} != {want}")
+    if res["flops"] != shapes or rel > TOOLS_FLOP_REL:
+        raise AssertionError(f"step count {res['flops']} on the card, {shapes} from shapes, "
+                             f"{rel:.3e} from JAX's {JAX_STEP_TFLOP[remat]} TFLOP")
+    return res
+
+
+def tools_memory(argv: list) -> dict:
+    """``mem_study`` on the card: the arguments below the allocated peak,
+    that below the reserved one."""
+    res = mem_study.main(argv)
+    if not 0 < res["arguments"] < res["max_allocated"] <= res["max_reserved"]:
+        raise AssertionError(f"mem_study {argv}: {res}")
+    return res
+
+
+def tools_profile(size: int, roi: int, ov: int, bc: int, tile_batch: int, dev) -> dict:
+    """``profile_inference`` with its launches: the compute leg's rows,
+    assembled, bit for bit ``run_streaming``'s; every leg timed twice."""
+    kernel_ops.reset_launches()
+    res = profile_inference.profile(size, roi, ov, bc, tile_batch, dev)
+    res["launches"] = kernel_ops.launches()
+    if not res["bitwise"]:
+        raise AssertionError("profile_inference: the compute leg's rows differ from "
+                             "run_streaming's")
+    want = pipeline_launches(5 * res["tile_batches"])  # two compute runs, three end to end
+    if res["launches"] != want:
+        raise AssertionError(f"profile_inference launches {res['launches']} != {want}")
+    if any(len(v) != 2 for v in res["legs"].values()):
+        raise AssertionError(f"profile_inference legs {res['legs']}")
+    return res
+
+
+def conv_bench_launches(res: dict, reps: int, grad: bool) -> dict:
+    """The launches of a ``bench_conv_kernels`` run: each hand route's
+    parity call, then each row's warm call and its reps."""
+    per_call = {"cudnn": {}, "densek": {"conv3x3": 1},
+                "wpair": ({"wconv3x3x3": 1, "wconv_dx": 1, "wconv_dw": 1} if grad
+                          else {"wconv3x3x3": 1})}
+    want = _zero_launches()
+    for name in res["parity"]:
+        _add_launches(want, per_call[name])
+    for row in res["rows"]:
+        for _ in range(reps + 1):
+            _add_launches(want, per_call[row["name"]])
+    return want
+
+
+def tools_conv(argv: list, grad: bool) -> dict:
+    """``bench_conv_kernels`` (with ``CONV_BENCH_GRAD`` as ``grad``): every
+    row timed, no FAILED row, parity held (a miss raises), the launches
+    exact."""
+    kernel_ops.reset_launches()
+    with _env("CONV_BENCH_GRAD", "1" if grad else "0"):
+        args = bench_conv_kernels.parse_args(argv)
+        res = bench_conv_kernels.bench(args)
+    res["launches"] = kernel_ops.launches()
+    failed = [r for r in res["rows"] if "error" in r]
+    if not res["ok"] or failed or not res["rows"]:
+        raise AssertionError(f"bench_conv_kernels {argv} grad {grad}: failed rows {failed}")
+    want = conv_bench_launches(res, args.reps, grad)
+    if res["launches"] != want:
+        raise AssertionError(f"bench_conv_kernels launches {res['launches']} != {want}")
+    return res
+
+
+def run_tools(dev) -> dict:
+    """The tools phase (``TOOLS_*``): each tool once, the launches summed."""
+    launches = _zero_launches()
+    counts = {remat: tools_count(remat) for remat in (True, False)}
+    for res in counts.values():
+        _add_launches(launches, res["launches"])
+    kernel_ops.reset_launches()
+    mem = tools_memory(TOOLS_MEM_ARGV)
+    want = {name: 2 * n for name, n in REMAT_STEP_LAUNCHES.items()}  # a warm step, a measured
+    if kernel_ops.launches() != want:
+        raise AssertionError(f"mem_study launches {kernel_ops.launches()} != {want}")
+    _add_launches(launches, want)
+    prof = tools_profile(*TOOLS_PROFILE, dev)
+    _add_launches(launches, prof["launches"])
+    conv = {grad: tools_conv(TOOLS_CONV_ARGV, grad) for grad in (False, True)}
+    for res in conv.values():
+        _add_launches(launches, res["launches"])
+    return {"counts": counts, "memory": mem, "profile": prof, "conv": conv,
+            "launches": launches}
+
+
+def run_tools_bench(dev) -> dict:
+    """``--bench``'s tools (``BENCH_*``): the profiles at 900^3, the conv
+    bench in both modes, the memory rows (any error, out of memory
+    included, fails the run)."""
+    out = {"profiles": [tools_profile(*p, dev) for p in BENCH_PROFILES],
+           "conv": {grad: tools_conv(BENCH_CONV_ARGV, grad) for grad in (False, True)},
+           "memory": {}}
+    for argv in BENCH_MEM_ARGVS:
+        out["memory"][" ".join(argv)] = tools_memory(argv)
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_bench_mode(dev) -> tuple:
     """``--bench``: the whole benchmark at its defaults (900^3), then the
-    sweep at 900^3: (record, rows)."""
+    sweep at 900^3, then the tools at their sizes: (record, rows,
+    tools)."""
     rec = bench_record({}, float(os.environ.get("BENCH_TOTAL_BUDGET", "1800")) + 60)
     log(json.dumps({"bench": rec}))
     rows = sweep_rows()
     log(json.dumps({"sweep": rows}))
-    return rec, rows
+    tools = run_tools_bench(dev)
+    log(json.dumps({"tools": tools}, default=str))
+    return rec, rows, tools
 
 
 def nvidia_smi() -> str:
@@ -4591,12 +4762,14 @@ def main(argv=None) -> int:
 
     if args.bench:
         with Phase("bench 900", budget_s) as ph:
-            rec, rows = run_bench_mode()
+            rec, rows, tools = run_bench_mode(dev)
             check_bench_record(rec)
             check_sweep_rows(rows)
             ph.result = (f"{rec['value']} voxel/s at roi 120, sweep "
                          + ", ".join(f"B{r['B']}/wp{r['wpallas']} {r.get('vox_per_s')}"
-                                     for r in rows))
+                                     for r in rows)
+                         + "; profiles end to end (s) "
+                         + ", ".join(str(p["legs"]["end_to_end"]) for p in tools["profiles"]))
         faulthandler.cancel_dump_traceback_later()
         log(smi)
         log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4758,6 +4931,18 @@ def main(argv=None) -> int:
                      f"NEUROCLEAR_PALLAS_WCONV=0 {bh['off']['vox_per_s']:.4g} voxel/s, no "
                      f"W-pair launch, {bh['off_lsb']} (max, mean LSB) from the kernel path")
 
+    with Phase("tools") as ph:
+        tl = run_tools(dev)
+        c, m, pr = tl["counts"][True], tl["memory"], tl["profile"]
+        ph.result = (f"{TOOLS_CROP}^3 step {c['flops'] / 1e12:.4f} TFLOP with remat "
+                     f"({tl['counts'][False]['flops'] / 1e12:.4f} without), on the card as from "
+                     f"shapes, {c['step_seconds'] * 1e3:.2f} ms a step: MFU "
+                     f"{c['flops'] / c['step_seconds'] / PEAK_BF16_FLOPS:.2%}; mem_study "
+                     f"{TOOLS_MEM_ARGV}: peak {m['max_allocated'] / 2 ** 30:.3f} GiB; profile "
+                     f"{TOOLS_PROFILE}: end to end {pr['legs']['end_to_end']} s, compute rows "
+                     f"bitwise run_streaming's; conv bench rows timed, parity held; launches "
+                     f"exact")
+
     if args.profile:
         with Phase("profile"):
             profile_pipeline(dev, args.seed)
@@ -4801,7 +4986,8 @@ def main(argv=None) -> int:
                    "vanilla_dice": vn["dice_launches"][name],
                    "batchnorm": bn["launches"][name],
                    "batchnorm_dice": bn["dice_launches"][name], "zoo": zo["launches"][name],
-                   "dp": dp["launches"][name], "bench": bh["launches"][name]}
+                   "dp": dp["launches"][name], "bench": bh["launches"][name],
+                   "tools": tl["launches"][name]}
         rows.append({"name": name, "route": "cuda", "source": csrc + src,
                      "replaces": "neuroclear_tpu/ops/" + replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -59,8 +59,12 @@ JAX argv (``cli_failures``): the train phase's ``--min_projection_depth``
 steps and depth draws (``run_min_depth``) with a depth sampler that keeps
 the lower bound 2, and ``test_dice --model test --add_date --verbose``
 (``dice_jax_flags_run``) with a parser that has no ``--model`` (argparse
-then reads ``--model test`` as ``--model_suffix test``).  It exits nonzero
-unless the runs as they are pass their checks and every fault fails one.
+then reads ``--model test`` as ``--model_suffix test``).  Last, the tools
+phase's checks (``tools_failures``): the 148^3 step count on the card
+against its count from shapes (``tools_count``) with hand kernels that add
+no FLOPs (``flops.hand`` a no-op), and the profiler's compute leg against
+``run_streaming`` (``tools_profile``) with a compute leg that skips a slab.
+It exits nonzero unless the runs as they are pass their checks and every fault fails one.
 """
 
 from __future__ import annotations
@@ -92,9 +96,9 @@ from neuroclear_tpu_torch.nn import core, norms
 from neuroclear_tpu_torch.nn.factory import define_D, define_G
 from neuroclear_tpu_torch.utils.weights import init_flat, params_from_numpy
 from neuroclear_tpu_torch.nn import generators
-from neuroclear_tpu_torch.ops import augment, build, conv3x3, inorm, wconv
+from neuroclear_tpu_torch.ops import augment, build, conv3x3, flops, inorm, wconv
 from neuroclear_tpu_torch.options import test_options
-from neuroclear_tpu_torch.scripts import select_checkpoint
+from neuroclear_tpu_torch.scripts import profile_inference, select_checkpoint
 from neuroclear_tpu_torch.utils import synthetic
 from neuroclear_tpu_torch.utils.assemble import Assemble_Dice
 
@@ -863,6 +867,53 @@ def cli_failures(seed, dev) -> bool:
     return ok
 
 
+def _hand_flops_dropped(f):
+    def fn(kind, n):
+        return None
+    return fn
+
+
+def _slab_skipped(f):
+    def fn(pipe, vp, chunks):
+        st = pipe.prepare(vp, chunks)
+        rows = []
+        for i in range(pipe.grid.z_steps):  # slab 1's rows emitted without its tiles
+            batches, st.batches = st.batches, [] if i == 1 else st.batches
+            rows.append(pipe.slab_rows(st, i))
+            st.batches = batches
+        return st, rows
+    return fn
+
+
+def tools_failures(dev) -> bool:
+    """The tools phase's two checks as they are and with their faults: the
+    step count on the card against the count from shapes with hand kernels
+    that add no FLOPs, and the profiler's compute leg against
+    ``run_streaming`` with a compute leg that skips a slab."""
+    ok = True
+    checks = [
+        ("count_step_flops", lambda: cs.tools_count(True),
+         [("hand kernels counting no FLOPs", _swapped(flops, "hand", _hand_flops_dropped))]),
+        ("profile_inference", lambda: cs.tools_profile(*cs.TOOLS_PROFILE, dev),
+         [("a compute leg skipping a slab", _swapped(profile_inference, "compute_rows",
+                                                     _slab_skipped))]),
+    ]
+    for name, check, faults in checks:
+        for i, (label, fault) in enumerate([(f"{name} as it is",
+                                             contextlib.nullcontext())] + faults):
+            try:
+                with fault:
+                    check()
+            except AssertionError as e:
+                cs.log(f"== {label}: the {name} check fails: {str(e)[:300]}")
+                ok &= i > 0
+            else:
+                cs.log(f"== {label}: the {name} check passes")
+                ok &= i == 0
+            torch.cuda.empty_cache()
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -892,6 +943,7 @@ def main(argv=None) -> int:
     ok &= dp_failures(args.seed)
     ok &= quality_failures(args.seed, dev)
     ok &= cli_failures(args.seed, dev)
+    ok &= tools_failures(dev)
     cs.log("every fault fails a check" if ok else "FAILED: see above")
     return 0 if ok else 1
 

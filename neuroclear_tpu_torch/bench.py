@@ -111,14 +111,6 @@ def _precision() -> str:
     return os.environ.get("BENCH_PRECISION", "bfloat16")
 
 
-def _no_tf32() -> None:
-    import torch
-
-    # f32 convs in full f32, as the JAX package's HIGHEST precision
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 # --------------------------------------------------------------------------
 # legs (each runs in its own subprocess; prints one JSON line on stdout)
 # --------------------------------------------------------------------------
@@ -173,8 +165,9 @@ def leg_inference(size: int, tile_batch: int, roi: int, ov: int, bc: int, device
     "wpallas"}, and with ``keep_volumes`` "volumes" (the two runs'
     outputs; otherwise the first is freed before the second starts)."""
     from .ops import wconv
+    from .utils.card import no_tf32
 
-    _no_tf32()
+    no_tf32()
     vol, vp, pipe = inference_pipeline(size, tile_batch, roi, ov, bc,
                                        precision or _precision(), device, flat)
     t0 = time.perf_counter()
@@ -234,8 +227,9 @@ def leg_train(crop: int, remat: bool, device=None, precision: str | None = None,
     from .models import create_model
     from .ops import wconv
     from .options import device_of, train_options
+    from .utils.card import no_tf32
 
-    _no_tf32()
+    no_tf32()
     with tempfile.TemporaryDirectory() as ckpt, contextlib.redirect_stdout(sys.stderr):
         # stdout stays one JSON line
         opt = train_options.parse(train_argv(crop, remat, precision or _precision(), device,

@@ -29,13 +29,14 @@ convs too, which is the same function.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, flops
 
 _COUTS = (32, 64, 96, 128)  # csrc/conv3x3.cu: one template per cout
 
@@ -95,19 +96,29 @@ def enabled() -> bool:
 
 def supported(x_shape, cin: int, cout: int, k: int, stride: int, pad: int,
               dim: int) -> bool:
-    """The shape gate of ``pallas_conv.supported``, on when ``enabled()``:
-    3D, k 3, stride 1, pad 1, cin and cout multiples of 32, cout at most
-    128, H at least 4 and W at least 32.  Its VMEM strip plan (``_pick_th``)
-    is a TPU budget and is not carried over; it refuses only W * cin above
-    116,508, which no production shape reaches."""
-    if not enabled():
-        return False
+    """``fits``, when ``enabled()``."""
+    return enabled() and fits(x_shape, cin, cout, k, stride, pad, dim)
+
+
+def fits(x_shape, cin: int, cout: int, k: int, stride: int, pad: int, dim: int) -> bool:
+    """The shape gate of ``pallas_conv.supported``: 3D, k 3, stride 1, pad
+    1, cin and cout multiples of 32, cout at most 128, H at least 4 and W at
+    least 32.  Its VMEM strip plan (``_pick_th``) is a TPU budget and is not
+    carried over; it refuses only W * cin above 116,508, which no production
+    shape reaches."""
     if dim != 3 or k != 3 or stride != 1 or pad != 1 or len(x_shape) != 5:
         return False
     if cin % 32 or cout % 32 or cout > 128:
         return False
     _, _, h, w, _ = x_shape
     return h >= 4 and w >= 32
+
+
+def conv_flops(x_shape, cin: int, cout: int) -> int:
+    """The FLOPs of a 3x3x3 SAME conv of x (B, D, H, W, cin) to cout
+    channels (``ops/flops.py``); the input gradient of a conv is the conv of
+    its cotangent, cin and cout swapped."""
+    return flops.conv(math.prod(x_shape[:4]) * cout, 27 * cin)
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -188,6 +199,7 @@ def conv3d(x: torch.Tensor, wt: torch.Tensor, bias=None) -> torch.Tensor:
         return conv3d_plain(x, wt, bias)
     y = launch(x, wt, bias, "conv3x3 kernel")
     conv3d.launches += 1
+    flops.hand("conv3x3", conv_flops(x.shape, x.shape[-1], wt.shape[1]))
     return y
 
 

@@ -39,8 +39,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import build
-from .conv3x3 import acc_dtype, box_counts, check_operand, conv3d_plain, launch, pack_weight
+from . import build, flops
+from .conv3x3 import (acc_dtype, box_counts, check_operand, conv3d_plain, conv_flops, launch,
+                      pack_weight)
 
 COUT = 64
 DW_BOX = (2, 4, 16)         # csrc/wconv_dw.cu: the voxel box (z, y, x) of a pipeline stage
@@ -95,6 +96,13 @@ def supported(x_shape, cin: int, cout: int, k: int, stride: int, pad: int,
     return cout == COUT and cin in (64, 128)
 
 
+def dw_flops(x_shape) -> int:
+    """The weight gradient's FLOPs (``ops/flops.py``): each of the 27 x 64 x
+    cin weights sums one product per voxel of x (B, D, H, W, cin)."""
+    b, d, h, w, cin = x_shape
+    return flops.conv(27 * COUT * cin, b * d * h * w)
+
+
 def dx_weight(wt: torch.Tensor) -> torch.Tensor:
     """Packed forward weights (27, 64, cin) -> the input gradient's packed
     weights (27, cin, 64): taps flipped (tap t -> 26 - t), in and out
@@ -132,6 +140,7 @@ def conv3d(x: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
                          f"weights {tuple(wt.shape)}")
     y = launch(x, wt, bias, "wconv kernel")
     conv3d.launches += 1
+    flops.hand("wconv3x3x3", conv_flops(x.shape, x.shape[-1], COUT))
     return y
 
 
@@ -149,6 +158,7 @@ def conv3d_dx(g: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wconv dx takes a {COUT}-channel cotangent, got {tuple(g.shape)}")
     dx = launch(g, dx_weight(wt), None, "wconv dx kernel")
     conv3d_dx.launches += 1
+    flops.hand("wconv_dx", conv_flops(g.shape, COUT, wt.shape[2]))
     return dx
 
 
@@ -180,6 +190,7 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                                     stream)
     build.check(lib, code, "wconv_dw launch")
     conv3d_dw.launches += 1
+    flops.hand("wconv_dw", dw_flops(x.shape))
     return dw
 
 

@@ -43,6 +43,9 @@ volume by up to 512 LSB from one card's.  Rank 0 then takes batches [0, 1],
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -97,7 +100,7 @@ def _host_rows(arr: np.ndarray, out_dtype) -> np.ndarray:
     return arr
 
 
-class _HostCopier:
+class HostCopier:
     """Device-to-host copies into pinned buffers on a side stream, so each
     slab's rows travel while the next slab computes."""
 
@@ -121,6 +124,25 @@ class _HostCopier:
         if self.cuda:
             self.stream.synchronize()
         return [h.numpy() for h in self.buffers]
+
+
+@dataclasses.dataclass
+class _Stream:
+    """One ``run_streaming`` run on the device: the raw samples' dtype, the
+    chunks (``DiceInferencePipeline.upload``; ``streamed``: one per slab,
+    else the one border-padded whole, widened to f32 once as ``whole``), the
+    coverage weights along z, y and x, this rank's tile batches of (y, x)
+    offsets, the output's (z, y, x) and the (roi, Y, X) f32 accumulator."""
+    raw: np.dtype
+    streamed: bool
+    chunks: list
+    whole: torch.Tensor | None
+    inv_cz: torch.Tensor
+    inv_cy: torch.Tensor
+    inv_cx: torch.Tensor
+    batches: list
+    out_shape: tuple
+    acc: torch.Tensor
 
 
 class DiceInferencePipeline:
@@ -154,6 +176,8 @@ class DiceInferencePipeline:
         self.out_dtype = out_dtype
         self.orig_shape = tuple(orig_shape) if orig_shape is not None else None
         self.device = resolve_device(device)
+        # entered around each tile batch (``add_tiles``): a profiler's span
+        self.batch_span = contextlib.nullcontext
 
     def _generate(self, x: torch.Tensor) -> torch.Tensor:
         """G on a (n, ext, ext, ext, 1) batch -> (n, roi, roi, roi) f32."""
@@ -177,89 +201,135 @@ class DiceInferencePipeline:
         ``run_streaming``, which computes it."""
         return self.run_streaming(vol_padded)
 
-    @torch.inference_mode()
-    def run_streaming(self, vol_padded: np.ndarray, on_rows=None) -> np.ndarray:
-        """vol_padded: dicing-padded (z, y, x) raw volume (not border-padded).
-        Returns the assembled volume, cropped to orig_shape when set."""
+    def _take(self, i: int) -> int:
+        """The rows slab i emits: a step's, or roi for the last."""
         g = self.grid
-        b, roi, step = g.border_cut, g.roi_size, g.step
-        ext = roi + 2 * b
-        dev = self.device
+        return g.roi_size if i == g.z_steps - 1 else g.step
+
+    def _streamed(self) -> bool:
+        """Whether each slab takes its rows from at most three z-chunks (one
+        upload per slab), rather than from the border-padded whole volume
+        (extreme overlap: a slab spans more than two chunks)."""
+        g = self.grid
+        b, step = g.border_cut, g.step
+        ext = g.roi_size + 2 * b
+        return step >= ext - step and g.z_steps > 1 and step > b
+
+    def upload(self, vol_padded: np.ndarray) -> list:
+        """The raw volume on the device as ``run_streaming`` takes it: one
+        z-chunk per slab's own rows (a slab borrows the previous chunk's
+        tail and the next chunk's head there), or at extreme overlap the
+        border-padded whole volume as the one chunk."""
+        g = self.grid
+        b, step = g.border_cut, g.step
         vol_np = np.asarray(vol_padded)
-        Zp, Yp, Xp = vol_np.shape
-        raw = vol_np.dtype
+        if self._streamed():
+            zp = vol_np.shape[0]
+            return [_upload(vol_np[i * step:(i + 1) * step if i < g.z_steps - 1 else zp],
+                            self.device) for i in range(g.z_steps)]
+        vol_bc = np.pad(vol_np, ((b, b),) * 3, mode="reflect") if b > 0 else vol_np
+        return [_upload(vol_bc, self.device)]
 
-        if step >= ext - step and g.z_steps > 1 and step > b:
-            # one upload per slab's own rows; a slab borrows the previous
-            # chunk's tail and the next chunk's head on the device
-            chunks = []
-            for i in range(g.z_steps):
-                z1 = (i + 1) * step if i < g.z_steps - 1 else Zp
-                chunks.append(_upload(vol_np[i * step:z1], dev))
-
-            def slab_volume(i):
-                parts = []
-                if i == 0:
-                    if b > 0:  # reflect: rows b..1 of chunk 0
-                        parts.append(chunks[0][1:b + 1].flip(0))
-                else:
-                    parts.append(chunks[i - 1][step - b:])
-                parts.append(chunks[i])
-                if i < g.z_steps - 1:
-                    parts.append(chunks[i + 1][:ext - b - step])
-                elif b > 0:  # reflect: the last b rows mirrored
-                    parts.append(chunks[i][-b - 1:-1].flip(0))
-                slab = _to_float(torch.cat(parts, dim=0), raw)
-                return _reflect_yx(slab, b) if b > 0 else slab
-        else:
-            # extreme overlap (a slab spans more than two chunks)
-            vol_bc = np.pad(vol_np, ((b, b),) * 3, mode="reflect") if b > 0 else vol_np
-            whole = _to_float(_upload(vol_bc, dev), raw)
-
-            def slab_volume(i):
-                return whole[i * step:i * step + ext]
-
-        offs_yx = [(y * step, x * step) for y in range(g.y_steps) for x in range(g.x_steps)]
-        inv_cz = torch.from_numpy(1.0 / g.coverage_1d(g.z_steps)).to(dev)
-        inv_cy = torch.from_numpy(1.0 / g.coverage_1d(g.y_steps)).to(dev)
-        inv_cx = torch.from_numpy(1.0 / g.coverage_1d(g.x_steps)).to(dev)
-        oz, oy, ox = self.orig_shape if self.orig_shape else (Zp, Yp, Xp)
-
-        acc = torch.zeros((roi, Yp, Xp), dtype=torch.float32, device=dev)
-        copier = _HostCopier(dev)
-        takes = []
-        B = self.tile_batch
-        nd = self.n_devices
+    @torch.inference_mode()
+    def prepare(self, vol_padded: np.ndarray, chunks=None) -> _Stream:
+        """One run's state: the chunks (uploaded here unless given), the
+        coverage weights, this rank's tile batches and a zero accumulator."""
+        g = self.grid
+        vol_np = np.asarray(vol_padded)
+        dev = self.device
+        chunks = self.upload(vol_np) if chunks is None else chunks
+        offs_yx = [(y * g.step, x * g.step) for y in range(g.y_steps) for x in range(g.x_steps)]
+        B, nd = self.tile_batch, self.n_devices
         batches = [offs_yx[j:j + B] for j in range(0, len(offs_yx), B)]
-        mine = batches[dist.get_rank()::nd] if nd > 1 else batches
-        for i in range(g.z_steps):
-            slab = slab_volume(i)
-            # one card adds its tiles into the accumulator; a rank into a
-            # zero delta that the slab's one all-reduce merges
-            dest = acc if nd == 1 else torch.zeros_like(acc)
-            for batch in mine:
-                tiles = torch.stack([slab[:ext, y:y + ext, x:x + ext] for y, x in batch])
-                y = self._generate((tiles * self.inv_scale).to(self.compute_dtype)[..., None])
-                for k, (y0, x0) in enumerate(batch):
-                    dest[:, y0:y0 + roi, x0:x0 + roi] += y[k]
-            if nd > 1:
-                self._merge(dest)
-                acc += dest
-            take = roi if i == g.z_steps - 1 else step
-            row_inv = inv_cz[i * step:i * step + roi]
-            copier.submit(_emit_rows(acc, row_inv, inv_cy, inv_cx, self.out_dtype,
-                                     oy, ox, take))
-            takes.append(take)
-            # roll: tail rows [step, roi) seed the next slab; the rest zero
-            acc[:roi - step] = acc[step:].clone()
-            acc[roi - step:] = 0
+        _, yp, xp = vol_np.shape
+        streamed = self._streamed()
+        return _Stream(
+            raw=vol_np.dtype, streamed=streamed, chunks=chunks,
+            whole=None if streamed else _to_float(chunks[0], vol_np.dtype),
+            inv_cz=torch.from_numpy(1.0 / g.coverage_1d(g.z_steps)).to(dev),
+            inv_cy=torch.from_numpy(1.0 / g.coverage_1d(g.y_steps)).to(dev),
+            inv_cx=torch.from_numpy(1.0 / g.coverage_1d(g.x_steps)).to(dev),
+            batches=batches[dist.get_rank()::nd] if nd > 1 else batches,
+            out_shape=self.orig_shape if self.orig_shape else vol_np.shape,
+            acc=torch.zeros((g.roi_size, yp, xp), dtype=torch.float32, device=dev))
 
+    def slab_volume(self, st: _Stream, i: int) -> torch.Tensor:
+        """Slab i as f32 (ext, Y + 2b, X + 2b), reflect border included."""
+        g = self.grid
+        b, step, chunks = g.border_cut, g.step, st.chunks
+        ext = g.roi_size + 2 * b
+        if not st.streamed:
+            return st.whole[i * step:i * step + ext]
+        parts = []
+        if i == 0:
+            if b > 0:  # reflect: rows b..1 of chunk 0
+                parts.append(chunks[0][1:b + 1].flip(0))
+        else:
+            parts.append(chunks[i - 1][step - b:])
+        parts.append(chunks[i])
+        if i < g.z_steps - 1:
+            parts.append(chunks[i + 1][:ext - b - step])
+        elif b > 0:  # reflect: the last b rows mirrored
+            parts.append(chunks[i][-b - 1:-1].flip(0))
+        slab = _to_float(torch.cat(parts, dim=0), st.raw)
+        return _reflect_yx(slab, b) if b > 0 else slab
+
+    def add_tiles(self, slab: torch.Tensor, batch, dest: torch.Tensor) -> None:
+        """One tile batch: the tiles at the (y, x) offsets of ``batch`` cut
+        from ``slab``, through the generator, added into ``dest``."""
+        roi = self.grid.roi_size
+        ext = roi + 2 * self.grid.border_cut
+        tiles = torch.stack([slab[:ext, y:y + ext, x:x + ext] for y, x in batch])
+        y = self._generate((tiles * self.inv_scale).to(self.compute_dtype)[..., None])
+        for k, (y0, x0) in enumerate(batch):
+            dest[:, y0:y0 + roi, x0:x0 + roi] += y[k]
+
+    @torch.inference_mode()
+    def slab_rows(self, st: _Stream, i: int) -> torch.Tensor:
+        """Slab i: its tiles added into the accumulator (one card) or into a
+        zero delta that the slab's one all-reduce merges (a rank), then its
+        finished rows emitted on the device (``_emit_rows``) and the overlap
+        tail rolled to the accumulator's head.  Returns the emitted rows."""
+        g = self.grid
+        roi, step = g.roi_size, g.step
+        acc = st.acc
+        slab = self.slab_volume(st, i)
+        dest = acc if self.n_devices == 1 else torch.zeros_like(acc)
+        for batch in st.batches:
+            with self.batch_span():
+                self.add_tiles(slab, batch, dest)
+        if self.n_devices > 1:
+            self._merge(dest)
+            acc += dest
+        _, oy, ox = st.out_shape
+        rows = _emit_rows(acc, st.inv_cz[i * step:i * step + roi], st.inv_cy, st.inv_cx,
+                          self.out_dtype, oy, ox, self._take(i))
+        # roll: tail rows [step, roi) seed the next slab; the rest zero
+        acc[:roi - step] = acc[step:].clone()
+        acc[roi - step:] = 0
+        return rows
+
+    def host_volume(self, st: _Stream, arrays: list, on_rows=None) -> np.ndarray:
+        """The volume from the emitted rows on the host, slab by slab, each
+        handed to ``on_rows`` as it is placed; cropped to orig_shape."""
+        oz, oy, ox = st.out_shape
         rows, z_done = [], 0
-        for arr, take in zip(copier.results(), takes):
-            r = _host_rows(arr, self.out_dtype).reshape(take, oy, ox)[:max(0, oz - z_done)]
+        for i, arr in enumerate(arrays):
+            r = _host_rows(arr, self.out_dtype).reshape(self._take(i), oy, ox)
+            r = r[:max(0, oz - z_done)]
             if r.shape[0]:
                 if on_rows is not None:
                     on_rows(r)
                 rows.append(r)
                 z_done += r.shape[0]
         return np.concatenate(rows, axis=0)
+
+    @torch.inference_mode()
+    def run_streaming(self, vol_padded: np.ndarray, on_rows=None) -> np.ndarray:
+        """vol_padded: dicing-padded (z, y, x) raw volume (not border-padded).
+        Returns the assembled volume, cropped to orig_shape when set."""
+        st = self.prepare(vol_padded)
+        copier = HostCopier(self.device)
+        for i in range(self.grid.z_steps):
+            copier.submit(self.slab_rows(st, i))
+        return self.host_volume(st, copier.results(), on_rows)
